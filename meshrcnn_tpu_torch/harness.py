@@ -1,0 +1,195 @@
+"""ShapeNet validation loop and its per-batch metrics
+(counterpart of the eval half of meshrcnn_tpu/harness.py; reference:
+utils/eval_utils.py:93-194).
+
+Per batch: the eval forward, then ``shapenet_eval_metrics``: voxel BCE and IoU,
+class predictions, per-stage chamfer / normal / edge losses, and point-cloud
+F1@tau. Each batch sends four cloud pairs through K1: three stage chamfers and
+the F1 distances.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterable, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from meshrcnn_tpu_torch.core.config import TrainConfig
+from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel, ShapeNetOutput
+from meshrcnn_tpu_torch.ops.chamfer_cuda import nn_bidir
+from meshrcnn_tpu_torch.ops.losses import batched_mesh_loss, voxel_loss
+from meshrcnn_tpu_torch.ops.sampling import Uniform, batched_sample_points
+from meshrcnn_tpu_torch.utils.meters import AverageMeter, gcn_metrics
+from meshrcnn_tpu_torch.utils.metrics import f_score
+
+
+class SyntheticBatch:
+    """One numpy batch at the bench recipe's shapes (bench.py:124-134)."""
+
+    def __init__(self, rng, B=3, H=137, grid=48, gt_v=2048, gt_f=4096, num_classes=13):
+        self.images = rng.rand(B, H, H, 3).astype(np.float32)
+        self.voxels = (rng.rand(B, grid, grid, grid) > 0.7).astype(np.float32)
+        self.gt_verts = (rng.randn(B, gt_v, 3) * 0.4).astype(np.float32)
+        self.gt_faces = rng.randint(0, gt_v, (B, gt_f, 3)).astype(np.int32)
+        self.gt_faces_mask = np.ones((B, gt_f), dtype=bool)
+        self.labels = rng.randint(0, num_classes, (B,)).astype(np.int32)
+
+
+def shapenet_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0):
+    """(model in eval mode, config, numpy batches) of the full-width bench recipe
+    (bench.py:103-137): ResNet-50 at 137x137, residual refinement, 48^3 voxels,
+    capacities 8192/16384/32768, 10k-point clouds, B=3, random weights and data
+    from ``seed``."""
+    torch.manual_seed(seed)
+    model = ShapeNetModel(num_classes=13, residual=True, cubify_threshold=0.2,
+                          voxel_out_channels=48, vertex_feature_dim=128,
+                          num_refinement_stages=3, vert_capacity=8192,
+                          face_capacity=16384, edge_capacity=32768).to(device).eval()
+    rng = np.random.RandomState(seed)
+    return model, TrainConfig(point_cloud_size=10000), [SyntheticBatch(rng)
+                                                        for _ in range(batches)]
+
+
+def _timed_iter(loader, meter: AverageMeter):
+    """Iterate ``loader`` booking only the ``next()`` wall time to ``meter``."""
+    it = iter(loader)
+    while True:
+        t0 = time.time()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        meter.update(time.time() - t0)
+        yield batch
+
+
+def _book_step_time(meters: Dict[str, AverageMeter], dt: float) -> None:
+    """The first step is warmup (kernel build, allocator growth), booked apart."""
+    if "warmup_time" not in meters:
+        meters["warmup_time"] = AverageMeter("warmup_time")
+        meters["warmup_time"].update(dt)
+        return
+    meters["batch_time"].update(dt)
+
+
+def _voxel_iou(pred: torch.Tensor, gt: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """Occupancy IoU of thresholded predictions against {0,1} targets."""
+    p = pred > threshold
+    t = gt > 0.5
+    inter = (p & t).sum()
+    union = (p | t).sum().clamp(min=1)
+    return inter.float() / union.float()
+
+
+def _f1_distances(verts, faces, faces_mask, gt_verts, gt_faces, gt_faces_mask,
+                  point_cloud_size: int, uniform: Uniform):
+    """Sampled-cloud squared NN distances both ways, through K1."""
+    cloud_p, valid_p = batched_sample_points(verts, faces, faces_mask,
+                                             point_cloud_size, uniform)
+    cloud_g, valid_g = batched_sample_points(gt_verts, gt_faces, gt_faces_mask,
+                                             point_cloud_size, uniform)
+    d_p, _, d_g, _ = nn_bidir(cloud_p, cloud_g)
+    return d_p, d_g, valid_p & valid_g
+
+
+def _f1_per_sample(verts, faces, faces_mask, gt_verts, gt_faces, gt_faces_mask,
+                   point_cloud_size: int, uniform: Uniform, taus: Sequence[float]):
+    """Per-sample point-cloud F1 at each tau: ([B, T] f1, [B] valid)."""
+    d_p, d_g, valid = _f1_distances(verts, faces, faces_mask, gt_verts, gt_faces,
+                                    gt_faces_mask, point_cloud_size, uniform)
+    f1s = []
+    for tau in taus:
+        thr = tau * tau
+        prec = (d_p < thr).float().mean(1)
+        rec = (d_g < thr).float().mean(1)
+        f1s.append(2 * prec * rec / (prec + rec).clamp(min=1e-12))
+    return torch.stack(f1s, dim=1), valid
+
+
+def _f1_terms(verts, faces, faces_mask, gt_verts, gt_faces, gt_faces_mask,
+              point_cloud_size: int, uniform: Uniform, taus: Sequence[float]):
+    """Per-tau (sum of per-sample F1 [T], valid count)."""
+    f1, valid = _f1_per_sample(verts, faces, faces_mask, gt_verts, gt_faces,
+                               gt_faces_mask, point_cloud_size, uniform, taus)
+    return torch.where(valid[:, None], f1, 0.0).sum(0), valid.sum()
+
+
+def shapenet_eval_metrics(out: ShapeNetOutput, gt_vox, gt_verts, gt_faces,
+                          gt_faces_mask, point_cloud_size: int, uniform: Uniform,
+                          taus: Sequence[float] = (0.1, 0.3),
+                          voxel_only: bool = False) -> Dict[str, torch.Tensor]:
+    """All per-batch eval metrics (counterpart of ``_shapenet_eval_metrics``).
+
+    Draws: three refinement stages of (predicted, ground-truth) clouds, then the
+    F1 pair, three uniforms per cloud, all from ``uniform`` in that order.
+    """
+    with record_function("metrics/voxel"):
+        res = {"voxel_loss": voxel_loss(out.voxels, gt_vox),
+               "voxel_iou": _voxel_iou(out.voxels, gt_vox),
+               "preds": out.logits.argmax(-1)}
+    if not voxel_only:
+        with record_function("metrics/mesh losses"):
+            chamfer, normal, edge = batched_mesh_loss(
+                list(out.stage_verts[1:]), out.mesh, gt_verts, gt_faces, gt_faces_mask,
+                uniform, point_cloud_size=point_cloud_size)
+        res.update(chamfer_loss=chamfer, normal_loss=normal, edge_loss=edge)
+        with record_function("metrics/F1"):
+            res["f1_sum"], res["f1_count"] = _f1_terms(
+                out.stage_verts[-1], out.mesh.faces, out.mesh.faces_mask, gt_verts,
+                gt_faces, gt_faces_mask, point_cloud_size, uniform, taus)
+    return res
+
+
+def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterable,
+             config: TrainConfig, num_classes: int, uniform: Uniform,
+             device: torch.device | str = "cuda", voxel_only: bool = False,
+             f1_taus: Sequence[float] = (0.1, 0.3), print_freq: int = 10) -> dict:
+    """Dataset evaluation over numpy batches (counterpart of ``harness.validate``).
+
+    A batch has ``images`` [B,H,W,3], ``voxels``, ``gt_verts``, ``gt_faces``,
+    ``gt_faces_mask`` and ``labels``. Returns the voxel/chamfer/normal/edge
+    losses, ``voxel_iou``, the confusion-based ``f0_1``/``f0_3``/``f0_5``,
+    point-cloud ``F1@tau`` and the ``confusion`` matrix, plus timing meters.
+    """
+    meters = gcn_metrics(voxel_only)
+    meters["voxel_iou"] = AverageMeter("voxel_iou")
+    confusion = np.zeros((num_classes, num_classes), dtype=np.int64)
+    taus = tuple(f1_taus)
+    f1_sums = {t: 0.0 for t in taus}
+    f1_count = 0
+    end = time.time()
+
+    def dev(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    for i, batch in enumerate(_timed_iter(loader, meters["data_loading"])):
+        out = eval_step(dev(batch.images))
+        m = shapenet_eval_metrics(out, dev(batch.voxels), dev(batch.gt_verts),
+                                  dev(batch.gt_faces), dev(batch.gt_faces_mask),
+                                  config.point_cloud_size, uniform, taus, voxel_only)
+        with record_function("metrics/to host"):
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+        meters["voxel_loss"].update(m["voxel_loss"])
+        meters["voxel_iou"].update(m["voxel_iou"])
+        for p, t in zip(m["preds"], np.asarray(batch.labels)):
+            confusion[int(t), int(p)] += 1
+        if not voxel_only:
+            for k in ("chamfer_loss", "normal_loss", "edge_loss"):
+                meters[k].update(m[k])
+            for j, tau in enumerate(taus):
+                f1_sums[tau] += float(m["f1_sum"][j])
+            f1_count += int(m["f1_count"])
+        _book_step_time(meters, time.time() - end)
+        end = time.time()
+        if i % print_freq == 0:
+            print(f"eval [{i}] voxel {meters['voxel_loss'].avg:.4f}")
+
+    results = {k: m.avg for k, m in meters.items()}
+    for beta, name in ((0.1, "f0_1"), (0.3, "f0_3"), (0.5, "f0_5")):
+        results[name] = float(np.nanmean(f_score(confusion, beta=beta)))
+    for tau in taus:
+        results[f"F1@{tau}"] = f1_sums[tau] / max(f1_count, 1)
+    results["confusion"] = confusion
+    return results

@@ -1,0 +1,184 @@
+"""K1: batched bidirectional nearest neighbour, its plain twin and the chamfer sums.
+
+Counterpart of ``meshrcnn_tpu/ops/chamfer_pallas.py``'s batched path
+(``_chamfer_bidir_pallas_batched``, ``_exact_sums_batched`` and the forward of
+``chamfer_sums_fused_batched``). The kernel is CUDA C++ for ``sm_90a`` in
+``meshrcnn_tpu_torch/csrc/chamfer_nn.cu``; its source note says what bounds it
+and how it is laid out. It is built with ``nvcc`` into a shared library with a
+plain C interface on first use and loaded with ``ctypes``.
+
+``nn_bidir`` is the wrapper. For a CUDA tensor it launches the kernel or
+raises; it runs the plain twin ``nn_bidir_plain`` only for tensors on the CPU.
+``nn_bidir.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "chamfer_nn.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_QUERIES_PER_BLOCK = 512   # THREADS * QPT in the CUDA source
+_TILE = 256                # TILE in the CUDA source
+PLAIN_TILE = 2048          # reference points per step of the plain twin
+
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the K1 kernel needs the CUDA toolkit")
+    return found
+
+
+def build() -> Path:
+    """Compile the kernel library if this source has not been built yet; return its path."""
+    global build_log
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"chamfer_nn_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                         capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.chamfer_nn_bidir.argtypes = [vp, vp, ci, ci, ci, ci, ci,
+                                         vp, vp, vp, vp, vp, vp, vp]
+        lib.chamfer_nn_bidir.restype = ci
+        _lib = lib
+    return _lib
+
+
+def _check(p: torch.Tensor, q: torch.Tensor) -> None:
+    for name, t in (("p", p), ("q", q)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name} must be [B, n, 3], got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if p.device != q.device:
+        raise ValueError(f"p on {p.device} and q on {q.device}")
+    if p.shape[0] != q.shape[0]:
+        raise ValueError(f"batch sizes differ: {p.shape[0]} vs {q.shape[0]}")
+    if p.shape[1] == 0 or q.shape[1] == 0:
+        raise ValueError("both clouds need at least one point")
+
+
+def _splits(blocks: int, points: int, device: torch.device) -> int:
+    """Reference-range spans per query block, so the grid holds ~4 blocks an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // blocks), -(-points // _TILE)))
+
+
+def _launch(p: torch.Tensor, q: torch.Tensor):
+    if p.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {p.device}")
+    B, N, M = p.shape[0], p.shape[1], q.shape[1]
+    sp = _splits(B * -(-N // _QUERIES_PER_BLOCK), M, p.device)
+    sq = _splits(B * -(-M // _QUERIES_PER_BLOCK), N, p.device)
+    scratch = max(sp * N, sq * M) * B
+    part_d = torch.empty(scratch, dtype=torch.float32, device=p.device)
+    part_i = torch.empty(scratch, dtype=torch.int32, device=p.device)
+    d_p = torch.empty((B, N), dtype=torch.float32, device=p.device)
+    i_p = torch.empty((B, N), dtype=torch.int32, device=p.device)
+    d_q = torch.empty((B, M), dtype=torch.float32, device=p.device)
+    i_q = torch.empty((B, M), dtype=torch.int32, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = _library().chamfer_nn_bidir(
+            p.data_ptr(), q.data_ptr(), B, N, M, sp, sq,
+            part_d.data_ptr(), part_i.data_ptr(), d_p.data_ptr(), i_p.data_ptr(),
+            d_q.data_ptr(), i_q.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+    nn_bidir.launches += 1
+    return d_p, i_p, d_q, i_q
+
+
+def nn_bidir(p: torch.Tensor, q: torch.Tensor):
+    """p [B,N,3], q [B,M,3] float32 -> (d_p [B,N], i_p [B,N] int32, d_q [B,M], i_q [B,M] int32).
+
+    Min squared distance and argmin both ways, ties to the lowest index. CUDA
+    tensors launch the kernel; CPU tensors take ``nn_bidir_plain``.
+    """
+    _check(p, q)
+    if p.device.type == "cpu":
+        return nn_bidir_plain(p, q)
+    return _launch(p, q)
+
+
+nn_bidir.launches = 0
+
+
+def nn_one_way(p: torch.Tensor, q: torch.Tensor):
+    """Plain tiled nearest neighbour of p [B,N,3] into q [B,M,3] -> (d [B,N], idx [B,N] int32).
+
+    Difference form with the kernel's operation order, first-occurrence argmin
+    inside a tile and strict ``<`` across tiles, so ties go to the lowest index.
+    """
+    B, N = p.shape[0], p.shape[1]
+    best = torch.full((B, N), float("inf"), dtype=torch.float32, device=p.device)
+    arg = torch.zeros((B, N), dtype=torch.int64, device=p.device)
+    for start in range(0, q.shape[1], PLAIN_TILE):
+        qt = q[:, start:start + PLAIN_TILE]
+        dx = p[:, :, None, 0] - qt[:, None, :, 0]
+        dy = p[:, :, None, 1] - qt[:, None, :, 1]
+        dz = p[:, :, None, 2] - qt[:, None, :, 2]
+        d = dx * dx + dy * dy + dz * dz                       # [B, N, T]
+        tmin, targ = torch.min(d, dim=2)
+        take = tmin < best
+        best = torch.where(take, tmin, best)
+        arg = torch.where(take, targ + start, arg)
+    return best, arg.to(torch.int32)
+
+
+def nn_bidir_plain(p: torch.Tensor, q: torch.Tensor):
+    """The kernel's function in plain PyTorch (its oracle on the card)."""
+    d_p, i_p = nn_one_way(p, q)
+    d_q, i_q = nn_one_way(q, p)
+    return d_p, i_p, d_q, i_q
+
+
+def exact_sums_batched(p, q, i_p, i_q):
+    """Per-sample chamfer sums recomputed in difference form from the indices
+    (``_exact_sums_batched``): [B] sum_i |p_i - q_{i_p}|^2 and [B] sum_j |q_j - p_{i_q}|^2."""
+    qa = torch.gather(q, 1, i_p.long()[..., None].expand(-1, -1, 3))
+    pa = torch.gather(p, 1, i_q.long()[..., None].expand(-1, -1, 3))
+    return ((p - qa) ** 2).sum(-1).sum(1), ((q - pa) ** 2).sum(-1).sum(1)
+
+
+def chamfer_sums_batched(p: torch.Tensor, q: torch.Tensor):
+    """(sum_p [B], idx_p [B,N], sum_q [B], idx_q [B,M]) through K1; the forward of
+    ``chamfer_sums_fused_batched``."""
+    _, i_p, _, i_q = nn_bidir(p, q)
+    s_p, s_q = exact_sums_batched(p, q, i_p, i_q)
+    return s_p, i_p, s_q, i_q

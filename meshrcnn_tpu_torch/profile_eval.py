@@ -1,0 +1,97 @@
+"""Where the time of a full-width ShapeNet eval batch goes, on a CUDA card.
+
+    python3 -m meshrcnn_tpu_torch.profile_eval [--windows 4,8,4,8] [--batches 8]
+
+Builds the bench recipe (``harness.shapenet_bench_setup``: ResNet-50 at
+137x137, residual refinement, capacities 8192/16384/32768, 10k-point clouds,
+B=3, random weights from seed 0), runs one forward, then prints
+  1. ``validate`` over each window of batches in ``--windows``, in that order,
+     in this one process: steady ms/batch and samples/s (the first batch of a
+     window is booked apart), so windows of different length and repeats of
+     one length can be compared;
+  2. the untraced wall time of ``--batches`` whole batches, and a
+     ``torch.profiler`` trace of them: host and device time of each
+     ``record_function`` range of the forward and the metrics, and device time
+     by kernel, with the kernels' share of the untraced wall.
+Needs a CUDA device; there is no CPU fallback.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from meshrcnn_tpu_torch.harness import shapenet_bench_setup, shapenet_eval_metrics, validate
+from meshrcnn_tpu_torch.ops.sampling import uniform_from
+from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
+
+_RANGES = ("forward/", "metrics/")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--windows", default="4,8,4,8",
+                    help="batch counts of the validate windows, run in order")
+    ap.add_argument("--batches", type=int, default=8, help="batches traced")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_eval needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    windows = [int(w) for w in args.windows.split(",")]
+    model, config, batches = shapenet_bench_setup(max(windows + [args.batches]), dev)
+    step = make_eval_step(model)
+    uniform = uniform_from(torch.Generator(device=dev).manual_seed(0))
+    step(torch.from_numpy(batches[0].images).to(dev))
+    torch.cuda.synchronize()
+
+    for n in windows:
+        res = validate(step, batches[:n], config, 13, uniform, device=dev,
+                       print_freq=10 ** 9)
+        B = batches[0].images.shape[0]
+        print(f"window of {n} batches: steady {res['batch_time'] * 1e3:.3f} ms/batch = "
+              f"{B / res['batch_time']:.3f} samples/s over {n - 1}; first batch "
+              f"{res['warmup_time'] * 1e3:.3f} ms")
+
+    traced = batches[:args.batches]
+
+    def run():
+        for b in traced:
+            gt = [torch.from_numpy(getattr(b, k)).to(dev)
+                  for k in ("voxels", "gt_verts", "gt_faces", "gt_faces_mask")]
+            m = shapenet_eval_metrics(step(torch.from_numpy(b.images).to(dev)), *gt,
+                                      config.point_cloud_size, uniform)
+            _ = {k: v.cpu() for k, v in m.items()}
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / len(traced)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    events = prof.key_averages()
+    n = len(traced)
+    print(f"ranges, ms/batch over {n} traced batches (host: wall inside the range; "
+          f"device: kernels launched inside it):")
+    for e in events:
+        if e.key.startswith(_RANGES) and e.device_type == torch.autograd.DeviceType.CPU:
+            print(f"  {e.key:22s} host {e.cpu_time_total / 1e3 / n:9.3f}  "
+                  f"device {e.device_time_total / 1e3 / n:9.3f}")
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(_RANGES)]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    print(f"untraced wall {wall_ms:.3f} ms/batch; kernel time {busy_ms:.3f} ms/batch "
+          f"(traced); device busy share {100 * busy_ms / wall_ms:.1f}%")
+    print(f"  {'kernel':70s} {'ms/batch':>9s} {'calls/batch':>11s}")
+    for e in kernels[:25]:
+        print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / n:9.3f} "
+              f"{e.count / n:11.1f}")
+
+
+if __name__ == "__main__":
+    main()

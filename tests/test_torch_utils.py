@@ -1,0 +1,42 @@
+"""The port's copies of numpy-level helpers against the JAX package's originals:
+config defaults, shape arithmetic, confusion F-beta and the meters (exact)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from meshrcnn_tpu.core import config as jax_config
+from meshrcnn_tpu.utils import shapes as jax_shapes
+from meshrcnn_tpu.utils.meters import AverageMeter as JaxAverageMeter
+from meshrcnn_tpu.utils.metrics import f_score as jax_f_score
+from meshrcnn_tpu_torch.core import config
+from meshrcnn_tpu_torch.utils import shapes
+from meshrcnn_tpu_torch.utils.meters import AverageMeter
+from meshrcnn_tpu_torch.utils.metrics import f_score
+
+
+@pytest.mark.parametrize("name", ["CapacityConfig", "ShapeNetConfig", "TrainConfig"])
+def test_config_defaults_match_jax(name):
+    ours = dataclasses.asdict(getattr(config, name)())
+    theirs = dataclasses.asdict(getattr(jax_config, name)())
+    assert ours == {k: theirs[k] for k in ours}
+
+
+@pytest.mark.parametrize("kw", [dict(kernel=3, padding=1), dict(kernel=7, padding=3, stride=2),
+                                dict(kernel=(3, 1), padding=(1, 0), dilation=2)])
+def test_shape_arithmetic_matches_jax(kw):
+    for h, w in ((137, 137), (5, 9), (48, 17)):
+        assert shapes.conv_output(h, w, **kw) == jax_shapes.conv_output(h, w, **kw)
+        assert shapes.convT_output(h, w, **kw) == jax_shapes.convT_output(h, w, **kw)
+
+
+def test_f_score_and_meter_match_jax():
+    cm = np.random.RandomState(0).randint(0, 9, (13, 13))
+    cm[3] = 0                                            # a class never seen
+    for beta in (0.1, 0.3, 0.5, 1.0):
+        np.testing.assert_array_equal(f_score(cm, beta), jax_f_score(cm, beta))
+    ours, theirs = AverageMeter("x"), JaxAverageMeter("x")
+    for v, n in ((1.5, 1), (float("nan"), 2), (2.0, 3), (float("inf"), 1)):
+        ours.update(v, n)
+        theirs.update(v, n)
+    assert (ours.avg, ours.sum, ours.count) == (theirs.avg, theirs.sum, theirs.count)

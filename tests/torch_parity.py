@@ -1,0 +1,69 @@
+"""Parity rig shared by the tests/test_torch_*.py files.
+
+Runs a JAX function and its counterpart in the PyTorch port on the same numpy
+inputs: it reproduces the JAX package's ``jax.random`` draws so they can be
+handed to the port, and carries flax parameters across with
+``shapenet_state_dict_from_jax``. Everything runs on the CPU.
+"""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from meshrcnn_tpu_torch.utils.jax_params import shapenet_state_dict_from_jax
+
+
+def to_numpy_tree(tree):
+    """A flax variable tree as nested dicts of numpy arrays."""
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Load flax ``{"params": ..., "batch_stats": ...}`` into ``module`` (strict), eval mode."""
+    sd = shapenet_state_dict_from_jax(to_numpy_tree(variables["params"]),
+                                      to_numpy_tree(variables.get("batch_stats", {})))
+    module.load_state_dict(sd, strict=True)
+    return module.eval()
+
+
+def t(x) -> torch.Tensor:
+    """numpy / jax array -> CPU torch tensor (a copy)."""
+    return torch.from_numpy(np.array(x))
+
+
+def sampler_draws(key, B: int, n: int) -> list:
+    """The (u, xi1, xi2) uniforms ``batched_sample_points`` draws from ``key``."""
+    k_face, k1, k2 = jax.random.split(key, 3)
+    return [np.asarray(jax.random.uniform(k, (B, n))) for k in (k_face, k1, k2)]
+
+
+def eval_metric_draws(key, B: int, n: int, num_stages: int = 3) -> list:
+    """Every uniform of ``_shapenet_eval_metrics(key, ...)``, in the port's order:
+    per stage fold_in(key, i) split into (pred, gt) clouds, then the F1 pair
+    from fold_in(key, 7)."""
+    draws = []
+    for i in range(num_stages):
+        k_pred, k_gt = jax.random.split(jax.random.fold_in(key, i))
+        draws += sampler_draws(k_pred, B, n) + sampler_draws(k_gt, B, n)
+    k_p, k_g = jax.random.split(jax.random.fold_in(key, 7))
+    return draws + sampler_draws(k_p, B, n) + sampler_draws(k_g, B, n)
+
+
+class Replay:
+    """A ``uniform(shape)`` source that hands out recorded draws in order."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def __call__(self, shape):
+        x = self.draws.pop(0)
+        assert tuple(x.shape) == tuple(shape), (x.shape, shape)
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max(max |want|, 1)."""
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
