@@ -3,11 +3,21 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run:
-  1. build every kernel of the port from the sources in this checkout;
-  2. hold each kernel against its plain PyTorch twin on the card, and time it;
-  3. drive the port's main path (ShapeNet eval: forward + mesh metrics) at the
-     full width of the bench recipe, and check that it went through the kernels;
-  4. run a small model on the card and on the CPU with the same weights.
+  1. build every kernel of the port from the sources in this checkout, one
+     nvcc per source, all at once;
+  2. hold each kernel against its plain PyTorch twin on the card, and time it
+     (K1 and K3; K2 and K4 are B=1 launches of them, held to the batched
+     launch's row);
+  3. drive the port's paths at the full width of the bench recipe, each with
+     the launch counts set to 0 just before it and read just after, and check
+     that it went through its kernels: ShapeNet eval (K1 x 4 a batch), the
+     train step (K1 x 3 a step, no K3), the reference kNN + PCA normal
+     estimator in training and eval (K3 x 6 a step and a batch), and the
+     single-sample chamfer distance and kNN (K2, K4);
+  4. run a small model on the card and on the CPU with the same weights: the
+     eval forward, one train step, and the backward of each module the step
+     differentiates through (gradients within 1e-4 of each tensor's scale in
+     float32, 1e-9 in float64).
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without that line when there is no CUDA device or any phase fails.
@@ -26,6 +36,10 @@ _PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60.0e12, 3.9e12),
           "H100": (67.0e12, 3.35e12)}
 # FP32 operations a point pair costs: 3 sub, 3 mul, 2 add, 1 compare.
 _OPS_PER_PAIR = 9
+KERNEL_SOURCES = ("chamfer_nn", "knn_candidates")
+_CHAMFER_SRC = "meshrcnn_tpu_torch/csrc/chamfer_nn.cu"
+_KNN_SRC = "meshrcnn_tpu_torch/csrc/knn_candidates.cu"
+_PALLAS = "meshrcnn_tpu/ops/chamfer_pallas.py"
 
 
 def _peaks(name: str):
@@ -59,16 +73,50 @@ def _fail(msg: str) -> None:
 
 
 def phase_build():
-    from meshrcnn_tpu_torch.ops import chamfer_cuda
+    from meshrcnn_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    path = chamfer_cuda.build()
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    print(chamfer_cuda.build_log.strip())
+    paths = cuda_build.build(KERNEL_SOURCES)
+    print(f"[build] {', '.join(p.name for p in paths.values())} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in KERNEL_SOURCES:
+        print(cuda_build.build_log.get(name, "").strip())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     return card
+
+
+def _counters():
+    from meshrcnn_tpu_torch.ops import chamfer_cuda, knn_cuda
+    return {"chamfer_nn_bidir": chamfer_cuda.nn_bidir,
+            "knn_candidates_batched": knn_cuda.knn_candidates_batched,
+            "chamfer_sums_fused": chamfer_cuda.chamfer_sums_fused,
+            "knn_candidates": knn_cuda.knn_candidates}
+
+
+def _reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _record(kernels, name, source, replaces, err, ms, plain_ms, ops, nbytes,
+            library_ms, card):
+    key, (flops, bw) = _peaks(card)
+    t_ops, t_bytes = ops / flops * 1e3, nbytes / bw * 1e3
+    kernels[name] = {"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": library_ms}
+    print(f"[{name}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {kernels[name]['bound_ms']:.4f} ms "
+          f"({kernels[name]['bound_by']}; {key} FP32 {flops / 1e12:.1f} TFLOP/s, "
+          f"{bw / 1e12:.2f} TB/s, {_OPS_PER_PAIR} ops/pair)")
 
 
 def _k1_agree(tag, got, want, min_agree=0.999, tol=1e-6):
@@ -87,15 +135,31 @@ def _k1_agree(tag, got, want, min_agree=0.999, tol=1e-6):
     return err
 
 
+def _k3_library(p, q, s):
+    """One PyTorch yardstick for K3: cdist squared, padded to runs of s, min."""
+    import torch
+    d = torch.cdist(p, q).square()
+    C = -(-q.shape[1] // s)
+    d = torch.nn.functional.pad(d, (0, C * s - q.shape[1]), value=float("inf"))
+    return d.view(p.shape[0], p.shape[1], C, s).min(-1)
+
+
+def _k1_library(p, q):
+    import torch
+    d = torch.cdist(p, q).square()
+    return d.min(2), d.min(1)
+
+
 def phase_kernels(card: str):
     import torch
 
-    from meshrcnn_tpu_torch.ops import chamfer_cuda
+    from meshrcnn_tpu_torch.ops import chamfer_cuda, knn_cuda
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
+    kernels = {}
 
-    # ragged N != M with exact ties: integer lattice points, so every distance
-    # is exact and the lowest-index rule decides; held against numpy too
+    # K1, ragged N != M with exact ties: integer lattice points, so every
+    # distance is exact and the lowest-index rule decides; held against numpy too
     p = torch.randint(0, 5, (2, 1000, 3), generator=g).float()
     q = torch.randint(0, 5, (2, 777, 3), generator=g).float()
     got = chamfer_cuda.nn_bidir(p.to(dev), q.to(dev))
@@ -107,50 +171,96 @@ def phase_kernels(card: str):
             and np.array_equal(got[3].cpu().numpy(), full.argmin(1))):
         _fail("K1 tie-break differs from the first-minimum argmin")
 
-    # the eval path's shape: 3 samples of 10k points each way
-    B, N, M = 3, 10000, 10000
+    # K3 on the same lattice clouds, every subtile the wrapper takes: values
+    # bit-equal to the twin's, argmins equal to numpy's first minimum per run
+    for s in (8, 16, 32, 64):
+        vals, idx = knn_cuda.knn_candidates_batched(p.to(dev), q.to(dev), s)
+        torch.cuda.synchronize()
+        pv, pi = knn_cuda.knn_candidates_plain(p.to(dev), q.to(dev), s)
+        C = -(-777 // s)
+        padded = np.concatenate([full, np.full((2, 1000, C * s - 777), np.inf)], 2)
+        first = padded.reshape(2, 1000, C, s).argmin(-1) + s * np.arange(C)
+        if not (torch.equal(vals.cpu(), pv.cpu()) and torch.equal(idx.cpu(), pi.cpu())
+                and np.array_equal(idx.cpu().numpy(), first)):
+            _fail(f"K3 ragged+ties s={s} differs from its twin or the first minimum")
+    print("[k3 ragged+ties] s=8,16,32,64: values bit-equal to the twin, argmins equal "
+          "to numpy's first minimum")
+
+    # the main paths' shapes: 3 samples of 10k points
+    B, N, M, S = 3, 10000, 10000, 64
     p = torch.rand((B, N, 3), generator=g).to(dev) * 2 - 1
     q = torch.rand((B, M, 3), generator=g).to(dev) * 2 - 1
     got = chamfer_cuda.nn_bidir(p, q)
     torch.cuda.synchronize()
-    want = chamfer_cuda.nn_bidir_plain(p, q)
-    err = _k1_agree("full", got, want)
-
-    launches = chamfer_cuda.nn_bidir.launches
+    err = _k1_agree("full", got, chamfer_cuda.nn_bidir_plain(p, q))
     ms = _time_ms(lambda: chamfer_cuda.nn_bidir(p, q))
     plain_ms = _time_ms(lambda: chamfer_cuda.nn_bidir_plain(p, q), reps=3, warmup=1)
+    library_ms = _time_ms(lambda: _k1_library(p, q), reps=5)
+    _record(kernels, "chamfer_nn_bidir", _CHAMFER_SRC, f"{_PALLAS}:338", err, ms, plain_ms,
+            B * N * M * _OPS_PER_PAIR, (B * N + B * M) * (3 * 4 + 8), library_ms, card)
 
-    def library():
-        d = torch.cdist(p, q).square()
-        return d.min(2), d.min(1)
-    library_ms = _time_ms(library, reps=5)
-    chamfer_cuda.nn_bidir.launches = launches
+    # K3 self-kNN, as the normal estimator calls it
+    vals, idx = knn_cuda.knn_candidates_batched(p, p, S)
+    torch.cuda.synchronize()
+    pv, pi = knn_cuda.knn_candidates_plain(p, p, S)
+    k3_err = (vals - pv).abs().max().item()
+    agree = (idx == pi).float().mean().item()
+    print(f"[k3 full] B={B} N=M={N} s={S}: argmin agreement {agree:.6f}, "
+          f"max |val| diff {k3_err:.3e}")
+    if not (k3_err == 0.0 and agree >= 0.999):
+        _fail("K3 disagrees with its plain twin at full width")
+    C = -(-N // S)
+    ms = _time_ms(lambda: knn_cuda.knn_candidates_batched(p, p, S))
+    plain_ms = _time_ms(lambda: knn_cuda.knn_candidates_plain(p, p, S), reps=3, warmup=1)
+    library_ms = _time_ms(lambda: _k3_library(p, p, S), reps=5)
+    _record(kernels, "knn_candidates_batched", _KNN_SRC, f"{_PALLAS}:553", k3_err, ms,
+            plain_ms, B * N * N * _OPS_PER_PAIR, 2 * B * N * 3 * 4 + B * C * N * 8,
+            library_ms, card)
 
-    key, (flops, bw) = _peaks(card)
-    ops = B * N * M * _OPS_PER_PAIR
-    nbytes = (B * N + B * M) * 3 * 4 + (B * N + B * M) * 8
-    t_ops, t_bytes = ops / flops * 1e3, nbytes / bw * 1e3
-    rec = {"name": "chamfer_nn_bidir", "route": "cuda",
-           "source": "meshrcnn_tpu_torch/csrc/chamfer_nn.cu",
-           "replaces": "meshrcnn_tpu/ops/chamfer_pallas.py:338",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms}
-    print(f"[k1 full] B={B} N={N} M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"cdist+min {library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}; {key} FP32 {flops / 1e12:.1f} TFLOP/s, "
-          f"{_OPS_PER_PAIR} ops/pair)")
-    return {"chamfer_nn_bidir": rec}
+    # K2 and K4: each B=1 launch equals the same row of the batched launch
+    sums = chamfer_cuda.chamfer_sums_batched(p, q)
+    for b in range(B):
+        one = chamfer_cuda.chamfer_sums_fused(p[b], q[b])
+        v1, i1 = knn_cuda.knn_candidates(p[b], p[b], S)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, s_[b]) for o, s_ in zip(one, sums)):
+            _fail(f"K2 sample {b} differs from the batched K1 launch")
+        if not (torch.equal(v1, vals[b]) and torch.equal(i1, idx[b])):
+            _fail(f"K4 sample {b} differs from the batched K3 launch")
+    print("[k2, k4] every B=1 launch equals its row of the batched launch")
+    p1, q1 = p[0].contiguous(), q[0].contiguous()
+
+    def plain_sums(a, b):
+        _, i_a, _, i_b = chamfer_cuda.nn_bidir_plain(a[None], b[None])
+        return chamfer_cuda.exact_sums_batched(a[None], b[None], i_a, i_b)
+
+    got, want = chamfer_cuda.chamfer_sums_fused(p1, q1), plain_sums(p1, q1)
+    k2_err = max(abs(got[0] - want[0][0]).item(), abs(got[2] - want[1][0]).item())
+    ms = _time_ms(lambda: chamfer_cuda.chamfer_sums_fused(p1, q1))
+    plain_ms = _time_ms(lambda: plain_sums(p1, q1), reps=3, warmup=1)
+    library_ms = _time_ms(lambda: _k1_library(p1[None], q1[None]), reps=5)
+    _record(kernels, "chamfer_sums_fused", _CHAMFER_SRC, f"{_PALLAS}:200", k2_err, ms,
+            plain_ms, N * M * _OPS_PER_PAIR, (N + M) * (3 * 4 + 8), library_ms, card)
+    k4_err = (knn_cuda.knn_candidates(p1, p1, S)[0]
+              - knn_cuda.knn_candidates_plain(p1[None], p1[None], S)[0][0]).abs().max().item()
+    ms = _time_ms(lambda: knn_cuda.knn_candidates(p1, p1, S))
+    plain_ms = _time_ms(lambda: knn_cuda.knn_candidates_plain(p1[None], p1[None], S), reps=3,
+                        warmup=1)
+    library_ms = _time_ms(lambda: _k3_library(p1[None], p1[None], S), reps=5)
+    _record(kernels, "knn_candidates", _KNN_SRC, f"{_PALLAS}:491", k4_err, ms, plain_ms,
+            N * N * _OPS_PER_PAIR, 2 * N * 3 * 4 + C * N * 8, library_ms, card)
+    if not (k2_err <= 1e-5 * max(abs(want[0][0].item()), 1.0) and k4_err == 0.0):
+        _fail(f"K2 / K4 disagree with their twins: {k2_err}, {k4_err}")
+    return kernels
 
 
-def phase_slice(kernels, batches: int = 8):
+def phase_slice(batches: int = 8):
     """ShapeNet eval at full width: ResNet-50 on 137x137 images, 48^3 voxels,
-    residual refinement, capacities 8192/16384/32768, 10k-point clouds, B=3."""
+    residual refinement, capacities 8192/16384/32768, 10k-point clouds, B=3.
+    Face normals (the default): K1 four times a batch, K3 never."""
     import torch
 
     from meshrcnn_tpu_torch.harness import shapenet_bench_setup, validate
-    from meshrcnn_tpu_torch.ops import chamfer_cuda
     from meshrcnn_tpu_torch.ops.sampling import uniform_from
     from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
 
@@ -165,25 +275,182 @@ def phase_slice(kernels, batches: int = 8):
           f"{out.mesh.num_verts().tolist()} faces {out.mesh.num_faces().tolist()} "
           f"edges {out.mesh.num_edges().tolist()}")
 
-    chamfer_cuda.nn_bidir.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     res = validate(step, loader, config, 13,
                    uniform_from(torch.Generator(device=dev).manual_seed(0)), device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = chamfer_cuda.nn_bidir.launches
-    kernels["chamfer_nn_bidir"]["launches"] = launches
+    counts = _counts()
 
     scalars = {k: v for k, v in res.items() if k != "confusion"}
     print(f"[slice] metrics {json.dumps(scalars)}")
     steady = res["batch_time"]
     print(f"[slice] {batches} batches of {B} in {wall:.3f} s; steady "
           f"{steady * 1e3:.2f} ms/batch = {B / steady:.3f} samples/s (first batch "
-          f"{res['warmup_time'] * 1e3:.2f} ms); K1 calls {launches}")
+          f"{res['warmup_time'] * 1e3:.2f} ms); launches {counts}")
     if not all(np.isfinite(v) for v in scalars.values()):
         _fail("non-finite eval metric")
-    if launches != 4 * batches:
-        _fail(f"K1 ran {launches} times for {batches} batches, want {4 * batches}")
+    want = {"chamfer_nn_bidir": 4 * batches, "knn_candidates_batched": 0,
+            "chamfer_sums_fused": 0, "knn_candidates": 0}
+    if counts != want:
+        _fail(f"eval launched {counts}, want {want}")
+
+
+def _train(tag, model, config, loader, dev):
+    """``train_epoch`` over ``loader`` with every step's metrics checked:
+    finite, and grads_finite 1. Returns (meters, launch counts)."""
+    import torch
+
+    from meshrcnn_tpu_torch.harness import train_epoch
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel.train_step import create_train_state, make_train_step
+    from meshrcnn_tpu_torch.utils.meters import gcn_metrics
+
+    step = make_train_step(config, uniform_from(torch.Generator(device=dev).manual_seed(1)))
+    seen = []
+
+    def checked(state, batch):
+        m = step(state, batch)
+        seen.append(dict(zip(m, torch.stack(list(m.values())).tolist())))
+        return m
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, meters = train_epoch(0, checked, create_train_state(model, config), loader,
+                                gcn_metrics(), dev, print_freq=10 ** 9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    B, steps = loader[0].images.shape[0], len(loader)
+    steady = meters["batch_time"].history[0]
+    print(f"[{tag}] {steps} steps of {B} in {wall:.3f} s; steady {steady * 1e3:.2f} "
+          f"ms/step = {B / steady:.3f} samples/s over {steps - 1} (first step "
+          f"{meters['warmup_time'].history[0] * 1e3:.2f} ms); launches {counts}")
+    for i, m in enumerate(seen):
+        print(f"[{tag}] step {i} {json.dumps(m)}")
+        if not all(np.isfinite(v) for v in m.values()) or m["grads_finite"] != 1.0:
+            _fail(f"{tag}: step {i} has a non-finite metric or gradient")
+    if state.step != steps:
+        _fail(f"{tag}: {state.step} steps taken, want {steps}")
+    return counts
+
+
+def phase_train(kernels, steps: int = 5):
+    """The bench recipe's train step at full width (harness.shapenet_train_setup):
+    Adam lr 1e-4, frozen backbone, weights voxel 1 / chamfer 1 / normal 0 /
+    edge 0.5. K1 three times a step, K3 never (the normal term is elided)."""
+    import torch
+
+    from meshrcnn_tpu_torch.harness import shapenet_train_setup
+    dev = torch.device("cuda")
+    model, config, loader = shapenet_train_setup(steps, dev)
+    counts = _train("train", model, config, loader, dev)
+    want = {"chamfer_nn_bidir": 3 * steps, "knn_candidates_batched": 0,
+            "chamfer_sums_fused": 0, "knn_candidates": 0}
+    if counts != want:
+        _fail(f"train launched {counts}, want {want}")
+    kernels["chamfer_nn_bidir"]["launches"] = counts["chamfer_nn_bidir"]
+
+
+def phase_estimator(kernels, steps: int = 3, batches: int = 2):
+    """The reference normal estimator at full width: train steps with normal
+    weight 0.1 and face_normals=False, then eval batches with face_normals=False.
+    K3 six times a step and a batch (2 clouds x 3 stages), K1 three times a
+    step and four times a batch."""
+    import torch
+
+    from meshrcnn_tpu_torch.core.config import LossWeights
+    from meshrcnn_tpu_torch.harness import SyntheticBatch, shapenet_train_setup, validate
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
+    dev = torch.device("cuda")
+    weights = LossWeights(voxel=1.0, chamfer=1.0, normal=0.1, edge=0.5)
+    model, config, loader = shapenet_train_setup(steps, dev, loss_weights=weights,
+                                                 face_normals=False)
+    counts = _train("estimator train", model, config, loader, dev)
+    want = {"chamfer_nn_bidir": 3 * steps, "knn_candidates_batched": 6 * steps,
+            "chamfer_sums_fused": 0, "knn_candidates": 0}
+    if counts != want:
+        _fail(f"estimator train launched {counts}, want {want}")
+    total = counts["knn_candidates_batched"]
+
+    rng = np.random.RandomState(1)
+    eval_loader = [SyntheticBatch(rng) for _ in range(batches)]
+    _reset_counts()
+    res = validate(make_eval_step(model), eval_loader, config, 13,
+                   uniform_from(torch.Generator(device=dev).manual_seed(2)), device=dev,
+                   print_freq=10 ** 9)
+    torch.cuda.synchronize()
+    counts = _counts()
+    scalars = {k: v for k, v in res.items() if k != "confusion"}
+    print(f"[estimator eval] metrics {json.dumps(scalars)}")
+    print(f"[estimator eval] {batches} batches; steady {res['batch_time'] * 1e3:.2f} "
+          f"ms/batch (first batch {res['warmup_time'] * 1e3:.2f} ms); launches {counts}")
+    if not all(np.isfinite(v) for v in scalars.values()):
+        _fail("non-finite estimator eval metric")
+    want = {"chamfer_nn_bidir": 4 * batches, "knn_candidates_batched": 6 * batches,
+            "chamfer_sums_fused": 0, "knn_candidates": 0}
+    if counts != want:
+        _fail(f"estimator eval launched {counts}, want {want}")
+    kernels["knn_candidates_batched"]["launches"] = total + counts["knn_candidates_batched"]
+
+
+def phase_single(kernels, calls: int = 3):
+    """The single-sample entry points at 10k points: ``chamfer_distance`` (K2)
+    and ``knn`` (K4), on clouds sampled from a bumpy sheet."""
+    import torch
+
+    from meshrcnn_tpu_torch.ops.chamfer import chamfer_distance, knn
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    _reset_counts()
+    for _ in range(calls):
+        xy = torch.rand((2, 10000, 2), generator=g) * 2 - 1
+        z = 0.3 * torch.sin(2 * xy[..., :1]) * torch.cos(3 * xy[..., 1:])
+        p, q = torch.cat([xy, z], -1).to(dev)
+        s_p, _, s_q, _ = chamfer_distance(p, q)
+        dists, idx = knn(p, q, 10)
+        ok = (bool(torch.isfinite(torch.stack([s_p, s_q])).all())
+              and bool((dists[:, 1:] >= dists[:, :-1]).all())
+              and 0 <= int(idx.min()) and int(idx.max()) < q.shape[0])
+        if not ok:
+            _fail("single-sample chamfer sums or kNN are not finite, sorted and in range")
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"[single] {calls} x (chamfer_distance, knn k=10) at 10k points: last sums "
+          f"{s_p.item():.6f}, {s_q.item():.6f}; launches {counts}")
+    want = {"chamfer_nn_bidir": calls, "knn_candidates_batched": calls,
+            "chamfer_sums_fused": calls, "knn_candidates": calls}
+    if counts != want:
+        _fail(f"single-sample paths launched {counts}, want {want}")
+    kernels["chamfer_sums_fused"]["launches"] = counts["chamfer_sums_fused"]
+    kernels["knn_candidates"]["launches"] = counts["knn_candidates"]
+
+
+def _tiny_model():
+    from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel
+    return ShapeNetModel(num_classes=13, residual=False, cubify_threshold=0.2,
+                         voxel_out_channels=8, vert_capacity=512, face_capacity=1024,
+                         edge_capacity=2048, num_refinement_stages=3)
+
+
+def _tiny_batch(B: int):
+    """The tiny model's training batch (``__graft_entry__._tiny_batch``'s recipe):
+    48x48 images, an 8x18x18 voxel target, 8 ground-truth verts and 6 faces."""
+    import types
+    rng = np.random.RandomState(0)
+    gt_verts = np.zeros((B, 16, 3), np.float32)
+    gt_verts[:, :8] = rng.randn(B, 8, 3)
+    gt_faces = np.zeros((B, 24, 3), np.int32)
+    gt_faces[:, :6] = rng.randint(0, 8, (B, 6, 3))
+    gt_faces_mask = np.zeros((B, 24), bool)
+    gt_faces_mask[:, :6] = True
+    return types.SimpleNamespace(
+        images=rng.rand(B, 48, 48, 3).astype(np.float32),
+        voxels=(rng.rand(B, 8, 18, 18) > 0.5).astype(np.float32),
+        gt_verts=gt_verts, gt_faces=gt_faces, gt_faces_mask=gt_faces_mask,
+        labels=rng.randint(0, 13, (B,)).astype(np.int32))
 
 
 def phase_small_card_vs_cpu():
@@ -192,13 +459,10 @@ def phase_small_card_vs_cpu():
     scale: f32 on both (TF32 off), only summation order differs."""
     import torch
 
-    from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel
     from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
 
     torch.manual_seed(1)
-    model = ShapeNetModel(num_classes=13, residual=False, cubify_threshold=0.2,
-                          voxel_out_channels=8, vert_capacity=512, face_capacity=1024,
-                          edge_capacity=2048, num_refinement_stages=3)
+    model = _tiny_model()
     images = torch.from_numpy(np.random.RandomState(0).rand(2, 48, 48, 3).astype(np.float32))
     cpu = make_eval_step(model)(images)
     gpu = make_eval_step(model.to("cuda"))(images.to("cuda"))
@@ -208,6 +472,189 @@ def phase_small_card_vs_cpu():
         print(f"[small] {name} card vs cpu: relative error {err:.3e}")
         if not err < 1e-4:
             _fail(f"{name} differs between the card and the CPU")
+
+
+def _distance(a: dict, b: dict, keys) -> float:
+    import torch
+    return torch.sqrt(sum(((a[k].double() - b[k].double()) ** 2).sum() for k in keys)).item()
+
+
+def phase_small_train_card_vs_cpu(lr: float = 1e-4, noise: float = 4.0, floor: float = 1e-4):
+    """One train step of the tiny model (bench recipe, 512-point clouds, the
+    same replayed uniforms) on the card and on the CPU from the same weights.
+    In train mode this model amplifies f32 rounding ~1e4-fold (BatchNorm over
+    8 values at c5, then the refine stages; tests/test_torch_train_step.py), so
+    the card is held within ``noise`` times the CPU's own spread, the distance
+    between CPU steps on images scaled by 1 and by 1 + 1e-6, plus ``floor`` of
+    scale: gradients (trainable and frozen trees) and BN statistics. Losses:
+    within 4 / point_cloud_size relative, four sampled points on another face
+    (the card sums the face areas' cumulative distribution in another order,
+    and a uniform near a boundary picks the neighbouring face). Parameters:
+    within 2 lr absolute (Adam's first update is ~lr sign(g))."""
+    import copy
+
+    import torch
+
+    from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
+    from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
+                                                        make_train_step)
+
+    torch.manual_seed(2)
+    base = _tiny_model()
+    pcs = 512
+    config = TrainConfig(optimizer="adam", lr=lr, weight_decay=0.0, point_cloud_size=pcs,
+                         loss_weights=LossWeights(voxel=1.0, chamfer=1.0, normal=0.0,
+                                                  edge=0.5))
+    draws = [np.random.RandomState(i).rand(2, pcs).astype(np.float32) for i in range(18)]
+    batch = _tiny_batch(2)
+    runs = {}
+    for tag, dev, scale in (("cpu", "cpu", 1.0), ("nudged", "cpu", 1.0 + 1e-6),
+                            ("card", "cuda", 1.0)):
+        model = copy.deepcopy(base).to(dev)
+        it = iter(draws)
+        step = make_train_step(config, lambda shape: torch.from_numpy(next(it)))
+        b = Batch.from_host(batch, dev)
+        b.images = b.images * scale
+        m = step(create_train_state(model, config), b)
+        runs[tag] = ({k: v.cpu() for k, v in m.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None},
+                     {k: v.cpu() for k, v in model.state_dict().items()})
+    (m_c, g_c, s_c), (m_n, g_n, s_n), (m_g, g_g, s_g) = (runs[k] for k in
+                                                         ("cpu", "nudged", "card"))
+    for k in m_c:
+        d, spread = abs(m_g[k] - m_c[k]).item(), abs(m_n[k] - m_c[k]).item()
+        print(f"[small train] {k}: card {m_g[k].item():.6f} cpu {m_c[k].item():.6f} "
+              f"(cpu spread {spread:.3e})")
+        if not d <= 4.0 / pcs * max(abs(m_c[k].item()), 1.0):
+            _fail(f"train metric {k} differs between the card and the CPU")
+    stats = [k for k in s_c if "running_" in k]
+    groups = {"trainable grads": (g_g, g_c, g_n, [k for k in g_c if not k.startswith("backbone.")]),
+              "frozen grads": (g_g, g_c, g_n, [k for k in g_c if k.startswith("backbone.")]),
+              "BN statistics": (s_g, s_c, s_n, stats)}
+    for name, (a, b, n, keys) in groups.items():
+        d, spread, scale = _distance(a, b, keys), _distance(n, b, keys), _distance(
+            b, {k: torch.zeros_like(b[k]) for k in keys}, keys)
+        print(f"[small train] {name}: card-cpu {d:.3e}, cpu spread {spread:.3e}, "
+              f"scale {scale:.3e}")
+        if not d <= noise * spread + floor * max(scale, 1.0):
+            _fail(f"{name} differ between the card and the CPU")
+    params = [k for k in s_c if "running_" not in k and "num_batches" not in k]
+    worst = max((s_g[k] - s_c[k]).abs().max().item() for k in params)
+    print(f"[small train] params: max |card - cpu| {worst:.3e} (lr {lr})")
+    if not worst <= 2 * lr * 1.001:
+        _fail("updated parameters differ between the card and the CPU by more than 2 lr")
+
+
+def _backward_pieces():
+    """name -> (module or None, float inputs, int inputs, scalar of (module,
+    floats, ints), dtype): every module the train step differentiates
+    through, at the bench recipe's widths and the tiny model's spatial sizes
+    (B=2, 48x48 images), eval mode, with fixed random cotangents. The mesh
+    loss runs K1, which takes float32; the modules run in float64 (see
+    ``phase_small_backward_card_vs_cpu``)."""
+    import torch
+
+    from meshrcnn_tpu_torch.core.mesh import MeshBatch
+    from meshrcnn_tpu_torch.models import layers
+    from meshrcnn_tpu_torch.models.resnet import ResNet50
+    from meshrcnn_tpu_torch.ops.graph_conv import precompute_adjacency
+    from meshrcnn_tpu_torch.ops.losses import mesh_loss
+
+    rng = np.random.RandomState(4)
+
+    def randn(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def dot(outs, cots):
+        return sum((o * torch.from_numpy(c).to(o.device)).sum() for o, c in zip(outs, cots))
+
+    torch.manual_seed(3)
+    B, V, E, pcs = 2, 512, 2048, 512
+    maps = [randn(B, s, s, c) for s, c in ((12, 256), (6, 512), (3, 1024), (2, 2048))]
+    verts = rng.uniform(-0.8, 0.8, (B, V, 3)).astype(np.float32) - np.float32([0, 0, 2])
+    a, b = rng.randint(0, V, (2, B, E))
+    edges = np.stack([np.minimum(a, b), np.maximum(a, b)], -1).astype(np.int32)
+    mask = rng.rand(B, E) > 0.2
+    cell_cots = [randn(B, V, 3), randn(B, V, 128)]
+
+    def cell(m, f, i):
+        topo = precompute_adjacency(i[0], i[1], V)
+        return dot(m(f[:4], f[4], topo, (48, 48), vert_feats=f[5]), cell_cots)
+
+    images = rng.rand(B, 48, 48, 3).astype(np.float32)
+    backbone = ResNet50(num_classes=13).eval()
+    with torch.no_grad():
+        logits, fms = backbone(torch.from_numpy(images))
+    backbone_cots = [randn(*o.shape) for o in [logits, *fms]]
+    c5 = randn(B, 5, 5, 2048)
+
+    def backbone_fn(m, f, i):
+        out_logits, out_maps = m(f[0])
+        return dot([out_logits, *out_maps], backbone_cots)
+    voxel_cot = randn(B, 48, 10, 10)
+
+    F = 300
+    faces = rng.randint(0, V, (B, F, 3)).astype(np.int32)
+    gt_v, gt_f = randn(B, 200, 3, scale=0.5), rng.randint(0, 200, (B, 400, 3)).astype(np.int32)
+    draws = [rng.rand(B, pcs).astype(np.float32) for _ in range(6)]
+
+    def loss(m, f, i):
+        it = iter(draws)
+        mesh = MeshBatch(verts=f[0], verts_mask=torch.ones((B, V), dtype=torch.bool,
+                                                           device=f[0].device),
+                         faces=i[0], faces_mask=torch.ones_like(i[0][..., 0], dtype=torch.bool),
+                         edges=i[1], edges_mask=i[2])
+        c, n, e = mesh_loss(f[0], mesh, f[1], i[3], torch.ones_like(i[3][..., 0], dtype=torch.bool),
+                            lambda shape: torch.from_numpy(next(it)).to(f[0].device),
+                            point_cloud_size=pcs, face_normals=True)
+        return c + 0.1 * n + 0.5 * e
+
+    return {
+        "refine cell": (layers.ResVertixRefineShapenet(use_input_features=True).eval(),
+                        maps + [verts, randn(B, V, 128)], [edges, mask], cell, torch.float64),
+        "backbone": (backbone, [images], [], backbone_fn, torch.float64),
+        "voxel head": (layers.VoxelBranch(2048, 48).eval(), [c5], [],
+                       lambda m, f, i: dot([m(f[0])], [voxel_cot]), torch.float64),
+        "mesh loss": (None, [verts * 0.5 + np.float32([0, 0, 1]), gt_v], [faces, edges, mask, gt_f],
+                      loss, torch.float32),
+    }
+
+
+def phase_small_backward_card_vs_cpu(device: str = "cuda"):
+    """The train step's backward piece by piece (``_backward_pieces``), on the
+    card and on the CPU from the same weights and inputs: every parameter's
+    and input's gradient within 1e-4 of its scale (max |card - cpu| /
+    max(max |cpu|, 1)) in float32, 1e-9 in float64; only summation order
+    differs. The modules run in float64 because their ReLUs are kinks: in
+    float32 a pre-activation within rounding of 0 takes the other branch on
+    the other device and moves a weight's gradient by ~1/(B*V) of its scale
+    (5.6e-4 in a refine cell at 512 vertices, on an H100). The whole step is
+    held more loosely above, as it amplifies rounding."""
+    import copy
+
+    import torch
+    tols = {torch.float32: 1e-4, torch.float64: 1e-9}
+    for name, (module, floats, ints, fn, dtype) in _backward_pieces().items():
+        grads = {}
+        for dev in ("cpu", device):
+            m = copy.deepcopy(module).to(dev, dtype) if module is not None else None
+            f = [torch.from_numpy(x).to(dev, dtype).requires_grad_(True) for x in floats]
+            fn(m, f, [torch.from_numpy(x).to(dev) for x in ints]).backward()
+            named = dict(m.named_parameters()) if m is not None else {}
+            named.update({f"input{k}": x for k, x in enumerate(f)})
+            grads[dev] = {k: p.grad.cpu().double() for k, p in named.items()
+                          if p.grad is not None}
+        cpu, card = grads["cpu"], grads[device]
+        if set(cpu) != set(card) or not cpu:
+            _fail(f"{name}: the card and the CPU differentiate different tensors")
+        errs = {k: ((card[k] - cpu[k]).abs().max() / max(cpu[k].abs().max().item(), 1.0)).item()
+                for k in cpu}
+        worst = max(errs, key=errs.get)
+        print(f"[small backward] {name} ({dtype}): {len(errs)} gradients, worst {worst} "
+              f"{errs[worst]:.3e} of its scale")
+        if not errs[worst] < tols[dtype]:
+            _fail(f"{name}: gradient {worst} differs between the card and the CPU")
 
 
 def main() -> None:
@@ -221,8 +668,13 @@ def main() -> None:
 
     card = phase_build()
     kernels = phase_kernels(card)
-    phase_slice(kernels)
+    phase_slice()
+    phase_train(kernels)
+    phase_estimator(kernels)
+    phase_single(kernels)
     phase_small_card_vs_cpu()
+    phase_small_train_card_vs_cpu()
+    phase_small_backward_card_vs_cpu()
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -41,20 +41,13 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sqdist.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;  // threads per block
 constexpr int QPT = 4;        // query points per thread
 constexpr int TILE = 256;     // reference points per shared-memory tile
-
-__device__ __forceinline__ float sqdist(float ax, float ay, float az,
-                                        float bx, float by, float bz) {
-  const float dx = __fsub_rn(ax, bx);
-  const float dy = __fsub_rn(ay, by);
-  const float dz = __fsub_rn(az, bz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 // Partial nearest neighbour of every point of x [B,n,3] within the span
 // [s*span, min((s+1)*span, m)) of y [B,m,3]; grid (ceil(n/(THREADS*QPT)), splits, B).

@@ -1,14 +1,17 @@
-"""ShapeNet validation loop and its per-batch metrics
-(counterpart of the eval half of meshrcnn_tpu/harness.py; reference:
+"""ShapeNet training and validation loops
+(counterpart of meshrcnn_tpu/harness.py; reference: utils/train_utils.py:174-250,
 utils/eval_utils.py:93-194).
 
-Per batch: the eval forward, then ``shapenet_eval_metrics``: voxel BCE and IoU,
-class predictions, per-stage chamfer / normal / edge losses, and point-cloud
-F1@tau. Each batch sends four cloud pairs through K1: three stage chamfers and
-the F1 distances.
+``train_epoch`` runs one train step per batch. ``validate`` runs, per batch,
+the eval forward, then ``shapenet_eval_metrics``: voxel BCE and IoU, class
+predictions, per-stage chamfer / normal / edge losses, and point-cloud F1@tau.
+Each eval batch sends four cloud pairs through K1: three stage chamfers and
+the F1 distances; with ``face_normals=False`` it also sends both clouds of
+each stage through K3 for their kNN + PCA normals (six launches).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, Iterable, Sequence
 
@@ -16,11 +19,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from meshrcnn_tpu_torch.core.config import TrainConfig
+from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
 from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel, ShapeNetOutput
 from meshrcnn_tpu_torch.ops.chamfer_cuda import nn_bidir
 from meshrcnn_tpu_torch.ops.losses import batched_mesh_loss, voxel_loss
 from meshrcnn_tpu_torch.ops.sampling import Uniform, batched_sample_points
+from meshrcnn_tpu_torch.parallel.train_step import Batch, TrainState
 from meshrcnn_tpu_torch.utils.meters import AverageMeter, gcn_metrics
 from meshrcnn_tpu_torch.utils.metrics import f_score
 
@@ -37,19 +41,40 @@ class SyntheticBatch:
         self.labels = rng.randint(0, num_classes, (B,)).astype(np.int32)
 
 
-def shapenet_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0):
-    """(model in eval mode, config, numpy batches) of the full-width bench recipe
+def _bench_model(device) -> ShapeNetModel:
+    return ShapeNetModel(num_classes=13, residual=True, cubify_threshold=0.2,
+                         voxel_out_channels=48, vertex_feature_dim=128,
+                         num_refinement_stages=3, vert_capacity=8192,
+                         face_capacity=16384, edge_capacity=32768).to(device)
+
+
+def shapenet_train_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
+                         **overrides):
+    """(model, config, numpy batches) of the full-width bench recipe
     (bench.py:103-137): ResNet-50 at 137x137, residual refinement, 48^3 voxels,
     capacities 8192/16384/32768, 10k-point clouds, B=3, random weights and data
-    from ``seed``."""
+    from ``seed``; Adam at lr 1e-4 without weight decay, a frozen backbone,
+    loss weights voxel 1, chamfer 1, normal 0, edge 0.5. ``overrides`` replace
+    fields of the config (``loss_weights``, ``face_normals``, ...)."""
     torch.manual_seed(seed)
-    model = ShapeNetModel(num_classes=13, residual=True, cubify_threshold=0.2,
-                          voxel_out_channels=48, vertex_feature_dim=128,
-                          num_refinement_stages=3, vert_capacity=8192,
-                          face_capacity=16384, edge_capacity=32768).to(device).eval()
+    model = _bench_model(device)
+    config = TrainConfig(optimizer="adam", lr=1e-4, weight_decay=0.0, batch_size=3,
+                         point_cloud_size=10000, normal_k=10, distance_tile=2048,
+                         train_backbone=False,
+                         loss_weights=LossWeights(voxel=1.0, chamfer=1.0, normal=0.0,
+                                                  edge=0.5))
+    config = dataclasses.replace(config, **overrides)
     rng = np.random.RandomState(seed)
-    return model, TrainConfig(point_cloud_size=10000), [SyntheticBatch(rng)
-                                                        for _ in range(batches)]
+    return model, config, [SyntheticBatch(rng) for _ in range(batches)]
+
+
+def shapenet_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
+                         **overrides):
+    """``shapenet_train_setup``'s recipe with the model in eval mode, for
+    ``validate``, which reads the config's point_cloud_size, normal_k,
+    distance_tile and face_normals."""
+    model, config, data = shapenet_train_setup(batches, device, seed, **overrides)
+    return model.eval(), config, data
 
 
 def _timed_iter(loader, meter: AverageMeter):
@@ -72,6 +97,32 @@ def _book_step_time(meters: Dict[str, AverageMeter], dt: float) -> None:
         meters["warmup_time"].update(dt)
         return
     meters["batch_time"].update(dt)
+
+
+def train_epoch(epoch: int, step_fn: Callable[[TrainState, Batch], Dict[str, torch.Tensor]],
+                state: TrainState, loader: Iterable, meters: Dict[str, AverageMeter],
+                device: torch.device | str = "cuda", print_freq: int = 10):
+    """One training epoch over numpy batches, one train step each (counterpart
+    of ``harness.train_epoch`` without its multi-step dispatch; reference:
+    train_utils.py:174-250). Every metric of the step goes to a meter of its
+    name; the first step of a run is booked as ``warmup_time``. Returns
+    (state, meters) after ``epoch_end`` on every meter."""
+    end = time.time()
+    for i, batch in enumerate(_timed_iter(loader, meters["data_loading"])):
+        metrics = step_fn(state, Batch.from_host(batch, device))
+        values = torch.stack(list(metrics.values())).tolist()     # one copy to the host
+        for k, v in zip(metrics, values):
+            if k not in meters:
+                meters[k] = AverageMeter(k)
+            meters[k].update(v)
+        _book_step_time(meters, time.time() - end)
+        end = time.time()
+        if i % print_freq == 0:
+            print(f"Epoch: [{epoch}][{i}] " + "\t".join(
+                f"{k} {m.val:.4f} ({m.avg:.4f})" for k, m in meters.items()))
+    for m in meters.values():
+        m.epoch_end()
+    return state, meters
 
 
 def _voxel_iou(pred: torch.Tensor, gt: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
@@ -119,11 +170,14 @@ def _f1_terms(verts, faces, faces_mask, gt_verts, gt_faces, gt_faces_mask,
 def shapenet_eval_metrics(out: ShapeNetOutput, gt_vox, gt_verts, gt_faces,
                           gt_faces_mask, point_cloud_size: int, uniform: Uniform,
                           taus: Sequence[float] = (0.1, 0.3),
-                          voxel_only: bool = False) -> Dict[str, torch.Tensor]:
+                          voxel_only: bool = False, normal_k: int = 10,
+                          tile: int = 2048, face_normals: bool = True
+                          ) -> Dict[str, torch.Tensor]:
     """All per-batch eval metrics (counterpart of ``_shapenet_eval_metrics``).
 
     Draws: three refinement stages of (predicted, ground-truth) clouds, then the
     F1 pair, three uniforms per cloud, all from ``uniform`` in that order.
+    ``face_normals=False`` scores normals estimated by kNN + PCA.
     """
     with record_function("metrics/voxel"):
         res = {"voxel_loss": voxel_loss(out.voxels, gt_vox),
@@ -133,7 +187,8 @@ def shapenet_eval_metrics(out: ShapeNetOutput, gt_vox, gt_verts, gt_faces,
         with record_function("metrics/mesh losses"):
             chamfer, normal, edge = batched_mesh_loss(
                 list(out.stage_verts[1:]), out.mesh, gt_verts, gt_faces, gt_faces_mask,
-                uniform, point_cloud_size=point_cloud_size)
+                uniform, point_cloud_size=point_cloud_size, num_neighbours=normal_k,
+                tile=tile, face_normals=face_normals)
         res.update(chamfer_loss=chamfer, normal_loss=normal, edge_loss=edge)
         with record_function("metrics/F1"):
             res["f1_sum"], res["f1_count"] = _f1_terms(
@@ -152,6 +207,8 @@ def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterab
     ``gt_faces_mask`` and ``labels``. Returns the voxel/chamfer/normal/edge
     losses, ``voxel_iou``, the confusion-based ``f0_1``/``f0_3``/``f0_5``,
     point-cloud ``F1@tau`` and the ``confusion`` matrix, plus timing meters.
+    The normal metric uses ``config.face_normals``, ``normal_k`` and
+    ``distance_tile``.
     """
     meters = gcn_metrics(voxel_only)
     meters["voxel_iou"] = AverageMeter("voxel_iou")
@@ -168,7 +225,9 @@ def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterab
         out = eval_step(dev(batch.images))
         m = shapenet_eval_metrics(out, dev(batch.voxels), dev(batch.gt_verts),
                                   dev(batch.gt_faces), dev(batch.gt_faces_mask),
-                                  config.point_cloud_size, uniform, taus, voxel_only)
+                                  config.point_cloud_size, uniform, taus, voxel_only,
+                                  config.normal_k, config.distance_tile,
+                                  config.face_normals)
         with record_function("metrics/to host"):
             m = {k: v.cpu().numpy() for k, v in m.items()}
         meters["voxel_loss"].update(m["voxel_loss"])

@@ -1,80 +1,44 @@
-"""K1: batched bidirectional nearest neighbour, its plain twin and the chamfer sums.
+"""K1 and K2: bidirectional nearest neighbour, its plain twin and the chamfer sums.
 
 Counterpart of ``meshrcnn_tpu/ops/chamfer_pallas.py``'s batched path
 (``_chamfer_bidir_pallas_batched``, ``_exact_sums_batched`` and the forward of
-``chamfer_sums_fused_batched``). The kernel is CUDA C++ for ``sm_90a`` in
+``chamfer_sums_fused_batched``) and of its single-sample form
+(``_chamfer_bidir_pallas`` behind ``chamfer_sums_fused``: K2, a B=1 launch of
+the same kernel). The kernel is CUDA C++ for ``sm_90a`` in
 ``meshrcnn_tpu_torch/csrc/chamfer_nn.cu``; its source note says what bounds it
-and how it is laid out. It is built with ``nvcc`` into a shared library with a
-plain C interface on first use and loaded with ``ctypes``.
+and how it is laid out. ``ops/cuda_build.py`` builds it on first use.
 
 ``nn_bidir`` is the wrapper. For a CUDA tensor it launches the kernel or
 raises; it runs the plain twin ``nn_bidir_plain`` only for tensors on the CPU.
-``nn_bidir.launches`` counts kernel launches.
+``nn_bidir.launches`` counts kernel launches, ``chamfer_sums_fused.launches``
+those of them made for K2 (it adds the change of ``nn_bidir.launches``).
+
+Gradients: the sums are recomputed from the kernel's integer indices with
+``torch.gather``, so autograd of ``exact_sums_batched`` with the indices fixed
+is the closed-form backward of the JAX package (``_bwd_batched``: gathers plus
+a segment sum, which is gather's backward, a scatter-add). No
+``autograd.Function`` is needed; tests/test_torch_train_step.py holds the gradients
+to ``_bwd_batched``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "chamfer_nn.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from meshrcnn_tpu_torch.ops import cuda_build
+from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
+
+SOURCE = cuda_build.CSRC / "chamfer_nn.cu"
 _QUERIES_PER_BLOCK = 512   # THREADS * QPT in the CUDA source
 _TILE = 256                # TILE in the CUDA source
 PLAIN_TILE = 2048          # reference points per step of the plain twin
 
-_lib = None
-build_log = ""
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the K1 kernel needs the CUDA toolkit")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet; return its path."""
-    global build_log
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"chamfer_nn_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.chamfer_nn_bidir.argtypes = [vp, vp, ci, ci, ci, ci, ci,
-                                         vp, vp, vp, vp, vp, vp, vp]
-        lib.chamfer_nn_bidir.restype = ci
-        _lib = lib
-    return _lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load("chamfer_nn", {
+        "chamfer_nn_bidir": [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]})
 
 
 def _check(p: torch.Tensor, q: torch.Tensor) -> None:
@@ -171,8 +135,8 @@ def nn_bidir_plain(p: torch.Tensor, q: torch.Tensor):
 def exact_sums_batched(p, q, i_p, i_q):
     """Per-sample chamfer sums recomputed in difference form from the indices
     (``_exact_sums_batched``): [B] sum_i |p_i - q_{i_p}|^2 and [B] sum_j |q_j - p_{i_q}|^2."""
-    qa = torch.gather(q, 1, i_p.long()[..., None].expand(-1, -1, 3))
-    pa = torch.gather(p, 1, i_q.long()[..., None].expand(-1, -1, 3))
+    qa = batched_gather_rows(q, i_p)
+    pa = batched_gather_rows(p, i_q)
     return ((p - qa) ** 2).sum(-1).sum(1), ((q - pa) ** 2).sum(-1).sum(1)
 
 
@@ -182,3 +146,16 @@ def chamfer_sums_batched(p: torch.Tensor, q: torch.Tensor):
     _, i_p, _, i_q = nn_bidir(p, q)
     s_p, s_q = exact_sums_batched(p, q, i_p, i_q)
     return s_p, i_p, s_q, i_q
+
+
+def chamfer_sums_fused(p: torch.Tensor, q: torch.Tensor):
+    """K2: (sum_p, idx_p [N], sum_q, idx_q [M]) for one cloud pair p [N,3], q [M,3],
+    a B=1 call of ``chamfer_sums_batched``. Its ``launches`` adds the K1 launches
+    this call made."""
+    before = nn_bidir.launches
+    s_p, i_p, s_q, i_q = chamfer_sums_batched(p[None], q[None])
+    chamfer_sums_fused.launches += nn_bidir.launches - before
+    return s_p[0], i_p[0], s_q[0], i_q[0]
+
+
+chamfer_sums_fused.launches = 0

@@ -36,5 +36,5 @@ def aggregate_neighbours(feats: torch.Tensor, topo: EdgeTopology) -> torch.Tenso
     B, V, C = feats.shape
     flat = feats.reshape(B * V, C)
     out = torch.zeros_like(flat)
-    out.index_add_(0, topo.dst, flat[topo.src])
+    out.index_add_(0, topo.dst, flat.index_select(0, topo.src))
     return out.reshape(B, V, C)

@@ -6,8 +6,11 @@ Conventions of the reference loss suite (meshRCNN/loss_functions.py):
   * edge is the mean squared edge length over the batch's valid edges
     (one batch-global normaliser).
 Empty meshes sample all-zero clouds and are masked out by ``valid``.
-Normals are the exact face normals of the sampled triangles (the JAX
-package's default); the kNN + PCA estimator is not ported yet.
+Normals are the exact face normals of the sampled triangles by default
+(``face_normals=True``, the JAX package's default); ``face_normals=False``
+estimates both clouds' normals by kNN + PCA (K3), the reference's construction,
+which the JAX package selects with ``MESHRCNN_FACE_NORMALS=0``. The port reads
+no environment variable: the caller passes the switch.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from meshrcnn_tpu_torch.core.mesh import MeshBatch
 from meshrcnn_tpu_torch.ops.chamfer import batched_normal_distance
 from meshrcnn_tpu_torch.ops.chamfer_cuda import chamfer_sums_batched
+from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
 from meshrcnn_tpu_torch.ops.sampling import Uniform, batched_sample_points
 
 
@@ -32,8 +36,7 @@ def voxel_loss(voxel_pred: torch.Tensor, voxel_gt: torch.Tensor,
 def edge_loss(verts: torch.Tensor, edges: torch.Tensor,
               edges_mask: torch.Tensor) -> torch.Tensor:
     """Mean squared edge length over all valid edges of verts [B,V,3], edges [B,E,2]."""
-    bidx = torch.arange(verts.shape[0], device=verts.device)[:, None]
-    d = verts[bidx, edges[..., 0].long()] - verts[bidx, edges[..., 1].long()]
+    d = batched_gather_rows(verts, edges[..., 0]) - batched_gather_rows(verts, edges[..., 1])
     m = edges_mask.to(verts.dtype)
     return ((d * d).sum(-1) * m).sum() / m.sum().clamp(min=1.0)
 
@@ -41,24 +44,31 @@ def edge_loss(verts: torch.Tensor, edges: torch.Tensor,
 def mesh_loss(pred_verts: torch.Tensor, pred_mesh: MeshBatch,
               gt_verts: torch.Tensor, gt_faces: torch.Tensor,
               gt_faces_mask: torch.Tensor, uniform: Uniform,
-              point_cloud_size: int = 10000, compute_normal: bool = True):
+              point_cloud_size: int = 10000, compute_normal: bool = True,
+              num_neighbours: int = 10, tile: int = 2048, face_normals: bool = True):
     """(chamfer, normal, edge) for one refinement stage.
 
     Samples the predicted cloud, then the ground-truth cloud (three uniforms
-    each, in that order), and sends the pair through K1.
+    each, in that order), and sends the pair through K1. ``compute_normal=False``
+    skips the normal term (it reads 0).
     """
     e_loss = edge_loss(pred_verts, pred_mesh.edges, pred_mesh.edges_mask)
-    cloud_p, valid_p, norm_p = batched_sample_points(
+    # face normals come with the samples; estimated ones are computed below
+    with_normals = compute_normal and face_normals
+    cloud_p, valid_p, *norm_p = batched_sample_points(
         pred_verts, pred_mesh.faces, pred_mesh.faces_mask, point_cloud_size,
-        uniform, return_normals=True)
-    cloud_g, valid_g, norm_g = batched_sample_points(
+        uniform, return_normals=with_normals)
+    cloud_g, valid_g, *norm_g = batched_sample_points(
         gt_verts, gt_faces, gt_faces_mask, point_cloud_size, uniform,
-        return_normals=True)
+        return_normals=with_normals)
     valid = (valid_p & valid_g).to(torch.float32)
     cham_p, idx_p, cham_g, idx_g = chamfer_sums_batched(cloud_p, cloud_g)
     chamfer = ((cham_p + cham_g) * valid).sum() / point_cloud_size
     if compute_normal:
-        align_p, align_g = batched_normal_distance(idx_p, idx_g, norm_p, norm_g)
+        align_p, align_g = batched_normal_distance(
+            cloud_p, cloud_g, idx_p, idx_g, k=num_neighbours, tile=tile,
+            normals_p=norm_p[0] if norm_p else None,
+            normals_q=norm_g[0] if norm_g else None)
         normal = -((align_p + align_g) * valid).sum() / point_cloud_size
     else:
         normal = torch.zeros((), dtype=torch.float32, device=pred_verts.device)
@@ -68,12 +78,15 @@ def mesh_loss(pred_verts: torch.Tensor, pred_mesh: MeshBatch,
 def batched_mesh_loss(stage_verts: Sequence[torch.Tensor], pred_mesh: MeshBatch,
                       gt_verts: torch.Tensor, gt_faces: torch.Tensor,
                       gt_faces_mask: torch.Tensor, uniform: Uniform,
-                      point_cloud_size: int = 10000, compute_normal: bool = True):
+                      point_cloud_size: int = 10000, compute_normal: bool = True,
+                      num_neighbours: int = 10, tile: int = 2048,
+                      face_normals: bool = True):
     """Sum of ``mesh_loss`` over the refinement stages, drawing stage by stage."""
     chamfer = normal = edge = 0.0
     for verts in stage_verts:
         c, n, e = mesh_loss(verts, pred_mesh, gt_verts, gt_faces, gt_faces_mask,
-                            uniform, point_cloud_size, compute_normal)
+                            uniform, point_cloud_size, compute_normal,
+                            num_neighbours, tile, face_normals)
         chamfer = chamfer + c
         normal = normal + n
         edge = edge + e

@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from meshrcnn_tpu_torch.core.mesh import normalize_verts_batched
+from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
 
 Uniform = Callable[[tuple], torch.Tensor]
 
@@ -40,7 +41,8 @@ def batched_sample_points(verts: torch.Tensor, faces: torch.Tensor,
     dev = verts.device
     faces = faces.long()
     bidx = torch.arange(B, device=dev)[:, None, None]
-    tri = verts[bidx, faces]                                     # [B, F, 3, 3]
+    # areas only pick integer faces: their gradient is zero, so no graph
+    tri = verts.detach()[bidx, faces]                            # [B, F, 3, 3]
     ab = tri[:, :, 1] - tri[:, :, 0]
     ac = tri[:, :, 2] - tri[:, :, 0]
     areas = 0.5 * torch.linalg.vector_norm(torch.linalg.cross(ab, ac), dim=-1)
@@ -52,7 +54,8 @@ def batched_sample_points(verts: torch.Tensor, faces: torch.Tensor,
     u = uniform((B, num_points)).to(dev)
     face_idx = torch.searchsorted(cdf, u, side="left").clamp(max=F - 1)
 
-    chosen = tri[torch.arange(B, device=dev)[:, None], face_idx]  # [B, N, 3, 3]
+    corners = batched_gather_rows(faces, face_idx)                # [B, N, 3]
+    chosen = batched_gather_rows(verts, corners.reshape(B, -1)).reshape(B, num_points, 3, 3)
     xi1_sqrt = torch.sqrt(uniform((B, num_points)).to(dev))
     xi2 = uniform((B, num_points)).to(dev)
     w0 = 1.0 - xi1_sqrt

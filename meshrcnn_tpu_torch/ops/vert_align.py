@@ -12,6 +12,8 @@ from typing import Sequence
 
 import torch
 
+from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
+
 
 def project_verts(verts: torch.Tensor, image_size: tuple[int, int],
                   focal: float = 248.0, center: float = 111.5):
@@ -32,14 +34,14 @@ def _bilinear_sample_batched(fmap: torch.Tensor, rows: torch.Tensor,
     c0 = torch.floor(cols)
     fr = (rows - r0)[..., None]
     fc = (cols - c0)[..., None]
-    r0i = r0.long()
-    c0i = c0.long()
+    r0i = r0.long().clamp(0, Hf - 1)      # a NaN coordinate reads row 0 and stays NaN
+    c0i = c0.long().clamp(0, Wf - 1)
     r1i = (r0i + 1).clamp(max=Hf - 1)
     c1i = (c0i + 1).clamp(max=Wf - 1)
-    bidx = torch.arange(B, device=fmap.device)[:, None]
+    rows_of = fmap.reshape(B, Hf * Wf, C)
 
     def g(r, c):
-        return fmap[bidx, r, c]
+        return batched_gather_rows(rows_of, r * Wf + c)
 
     return (g(r0i, c0i) * ((1 - fr) * (1 - fc)) + g(r0i, c1i) * ((1 - fr) * fc)
             + g(r1i, c0i) * (fr * (1 - fc)) + g(r1i, c1i) * (fr * fc))

@@ -1,18 +1,22 @@
-"""Where the time of a full-width ShapeNet eval batch goes, on a CUDA card.
+"""Where the time of a full-width ShapeNet eval batch or train step goes, on a CUDA card.
 
     python3 -m meshrcnn_tpu_torch.profile_eval [--windows 4,8,4,8] [--batches 8]
+                                               [--train] [--estimator]
 
-Builds the bench recipe (``harness.shapenet_bench_setup``: ResNet-50 at
-137x137, residual refinement, capacities 8192/16384/32768, 10k-point clouds,
-B=3, random weights from seed 0), runs one forward, then prints
-  1. ``validate`` over each window of batches in ``--windows``, in that order,
-     in this one process: steady ms/batch and samples/s (the first batch of a
-     window is booked apart), so windows of different length and repeats of
-     one length can be compared;
+Builds the bench recipe (``harness.shapenet_bench_setup``, or with ``--train``
+``harness.shapenet_train_setup``: ResNet-50 at 137x137, residual refinement,
+capacities 8192/16384/32768, 10k-point clouds, B=3, random weights from seed
+0; ``--estimator`` sets normal weight 0.1 and the kNN + PCA normals), runs one
+forward, then prints
+  1. ``validate`` (or ``train_epoch``) over each window of batches in
+     ``--windows``, in that order, in this one process: steady ms/batch and
+     samples/s (the first batch of a window is booked apart), so windows of
+     different length and repeats of one length can be compared;
   2. the untraced wall time of ``--batches`` whole batches, and a
      ``torch.profiler`` trace of them: host and device time of each
-     ``record_function`` range of the forward and the metrics, and device time
-     by kernel, with the kernels' share of the untraced wall.
+     ``record_function`` range of the forward, the losses or metrics and the
+     train step, and device time by kernel, with the kernels' share of the
+     untraced wall.
 Needs a CUDA device; there is no CPU fallback.
 """
 from __future__ import annotations
@@ -22,11 +26,15 @@ import time
 
 import torch
 
-from meshrcnn_tpu_torch.harness import shapenet_bench_setup, shapenet_eval_metrics, validate
+from meshrcnn_tpu_torch.core.config import LossWeights
+from meshrcnn_tpu_torch.harness import (shapenet_bench_setup, shapenet_eval_metrics,
+                                        shapenet_train_setup, train_epoch, validate)
 from meshrcnn_tpu_torch.ops.sampling import uniform_from
-from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
+from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
+                                                    make_eval_step, make_train_step)
+from meshrcnn_tpu_torch.utils.meters import gcn_metrics
 
-_RANGES = ("forward/", "metrics/")
+_RANGES = ("forward/", "metrics/", "losses/", "train/")
 
 
 def main() -> None:
@@ -34,6 +42,9 @@ def main() -> None:
     ap.add_argument("--windows", default="4,8,4,8",
                     help="batch counts of the validate windows, run in order")
     ap.add_argument("--batches", type=int, default=8, help="batches traced")
+    ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--estimator", action="store_true",
+                    help="normal weight 0.1 with kNN + PCA normals (face_normals=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a CUDA device")
@@ -41,28 +52,49 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     windows = [int(w) for w in args.windows.split(",")]
-    model, config, batches = shapenet_bench_setup(max(windows + [args.batches]), dev)
-    step = make_eval_step(model)
+    n_batches = max(windows + [args.batches])
+    overrides = {}
+    if args.estimator:
+        overrides = dict(loss_weights=LossWeights(voxel=1.0, chamfer=1.0, normal=0.1,
+                                                  edge=0.5), face_normals=False)
     uniform = uniform_from(torch.Generator(device=dev).manual_seed(0))
-    step(torch.from_numpy(batches[0].images).to(dev))
+    if args.train:
+        model, config, batches = shapenet_train_setup(n_batches, dev, **overrides)
+        state = create_train_state(model, config)
+        step = make_train_step(config, uniform)
+        step(state, Batch.from_host(batches[0], dev))
+    else:
+        model, config, batches = shapenet_bench_setup(n_batches, dev, **overrides)
+        step = make_eval_step(model)
+        step(torch.from_numpy(batches[0].images).to(dev))
     torch.cuda.synchronize()
+    B = batches[0].images.shape[0]
 
     for n in windows:
-        res = validate(step, batches[:n], config, 13, uniform, device=dev,
-                       print_freq=10 ** 9)
-        B = batches[0].images.shape[0]
-        print(f"window of {n} batches: steady {res['batch_time'] * 1e3:.3f} ms/batch = "
-              f"{B / res['batch_time']:.3f} samples/s over {n - 1}; first batch "
-              f"{res['warmup_time'] * 1e3:.3f} ms")
+        if args.train:
+            _, meters = train_epoch(0, step, state, batches[:n], gcn_metrics(), dev,
+                                    print_freq=10 ** 9)
+            steady, first = meters["batch_time"].history[0], meters["warmup_time"].history[0]
+        else:
+            res = validate(step, batches[:n], config, 13, uniform, device=dev,
+                           print_freq=10 ** 9)
+            steady, first = res["batch_time"], res["warmup_time"]
+        print(f"window of {n} batches: steady {steady * 1e3:.3f} ms/batch = "
+              f"{B / steady:.3f} samples/s over {n - 1}; first batch {first * 1e3:.3f} ms")
 
     traced = batches[:args.batches]
 
     def run():
         for b in traced:
-            gt = [torch.from_numpy(getattr(b, k)).to(dev)
-                  for k in ("voxels", "gt_verts", "gt_faces", "gt_faces_mask")]
-            m = shapenet_eval_metrics(step(torch.from_numpy(b.images).to(dev)), *gt,
-                                      config.point_cloud_size, uniform)
+            if args.train:
+                m = step(state, Batch.from_host(b, dev))
+            else:
+                gt = [torch.from_numpy(getattr(b, k)).to(dev)
+                      for k in ("voxels", "gt_verts", "gt_faces", "gt_faces_mask")]
+                m = shapenet_eval_metrics(step(torch.from_numpy(b.images).to(dev)), *gt,
+                                          config.point_cloud_size, uniform,
+                                          normal_k=config.normal_k, tile=config.distance_tile,
+                                          face_normals=config.face_normals)
             _ = {k: v.cpu() for k, v in m.items()}
         torch.cuda.synchronize()
 

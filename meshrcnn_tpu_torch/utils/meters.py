@@ -11,6 +11,10 @@ class AverageMeter:
 
     def __init__(self, name: str):
         self.name = name
+        self.history = []        # the average of each finished epoch
+        self.reset()
+
+    def reset(self) -> None:
         self.val = 0.0
         self.avg = 0.0
         self.sum = 0.0
@@ -25,6 +29,10 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / self.count
+
+    def epoch_end(self) -> None:
+        self.history.append(self.avg)
+        self.reset()
 
 
 def gcn_metrics(voxel_only: bool = False) -> Dict[str, AverageMeter]:

@@ -112,8 +112,10 @@ def test_normal_distance_matches_jax_given_normals():
     n_q /= np.linalg.norm(n_q, axis=-1, keepdims=True)
     i_p = rng.randint(0, M, (B, N)).astype(np.int32)
     i_q = rng.randint(0, N, (B, M)).astype(np.int32)
-    got = batched_normal_distance(torch.from_numpy(i_p), torch.from_numpy(i_q),
-                                  torch.from_numpy(n_p), torch.from_numpy(n_q))
+    got = batched_normal_distance(torch.zeros((B, N, 3)), torch.zeros((B, M, 3)),
+                                  torch.from_numpy(i_p), torch.from_numpy(i_q),
+                                  normals_p=torch.from_numpy(n_p),
+                                  normals_q=torch.from_numpy(n_q))
     want = jax_normal_distance(jnp.zeros((B, N, 3)), jnp.zeros((B, M, 3)),
                                jnp.asarray(i_p), jnp.asarray(i_q),
                                normals_p=jnp.asarray(n_p), normals_q=jnp.asarray(n_q))

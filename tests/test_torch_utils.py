@@ -15,11 +15,18 @@ from meshrcnn_tpu_torch.utils.meters import AverageMeter
 from meshrcnn_tpu_torch.utils.metrics import f_score
 
 
-@pytest.mark.parametrize("name", ["CapacityConfig", "ShapeNetConfig", "TrainConfig"])
+@pytest.mark.parametrize("name", ["CapacityConfig", "ShapeNetConfig", "TrainConfig",
+                                  "LossWeights"])
 def test_config_defaults_match_jax(name):
+    """Every field the port shares with the JAX package has its default; the
+    port's own field is the normal estimator switch, which the JAX package
+    reads from MESHRCNN_FACE_NORMALS (default on)."""
     ours = dataclasses.asdict(getattr(config, name)())
     theirs = dataclasses.asdict(getattr(jax_config, name)())
-    assert ours == {k: theirs[k] for k in ours}
+    own = {"face_normals": True} if name == "TrainConfig" else {}
+    assert {k: v for k, v in ours.items() if k not in own} == {
+        k: theirs[k] for k in ours if k not in own}
+    assert {k: ours[k] for k in own} == own
 
 
 @pytest.mark.parametrize("kw", [dict(kernel=3, padding=1), dict(kernel=7, padding=3, stride=2),

@@ -19,10 +19,16 @@ def to_numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
 
+def state_dict_from_flax(params, batch_stats=None) -> dict:
+    """The port's state_dict of flax ``params`` / ``batch_stats`` trees (a
+    gradient tree maps as a params tree: every layout change is linear)."""
+    return shapenet_state_dict_from_jax(to_numpy_tree(params),
+                                        to_numpy_tree(batch_stats or {}))
+
+
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load flax ``{"params": ..., "batch_stats": ...}`` into ``module`` (strict), eval mode."""
-    sd = shapenet_state_dict_from_jax(to_numpy_tree(variables["params"]),
-                                      to_numpy_tree(variables.get("batch_stats", {})))
+    sd = state_dict_from_flax(variables["params"], variables.get("batch_stats"))
     module.load_state_dict(sd, strict=True)
     return module.eval()
 
@@ -38,14 +44,20 @@ def sampler_draws(key, B: int, n: int) -> list:
     return [np.asarray(jax.random.uniform(k, (B, n))) for k in (k_face, k1, k2)]
 
 
-def eval_metric_draws(key, B: int, n: int, num_stages: int = 3) -> list:
-    """Every uniform of ``_shapenet_eval_metrics(key, ...)``, in the port's order:
-    per stage fold_in(key, i) split into (pred, gt) clouds, then the F1 pair
-    from fold_in(key, 7)."""
+def train_step_draws(key, B: int, n: int, num_stages: int = 3) -> list:
+    """Every uniform of ``batched_mesh_loss(key, ...)`` (the train step's), in
+    the port's order: per stage fold_in(key, i) split into (pred, gt) clouds."""
     draws = []
     for i in range(num_stages):
         k_pred, k_gt = jax.random.split(jax.random.fold_in(key, i))
         draws += sampler_draws(k_pred, B, n) + sampler_draws(k_gt, B, n)
+    return draws
+
+
+def eval_metric_draws(key, B: int, n: int, num_stages: int = 3) -> list:
+    """Every uniform of ``_shapenet_eval_metrics(key, ...)``, in the port's order:
+    the train step's, then the F1 pair from fold_in(key, 7)."""
+    draws = train_step_draws(key, B, n, num_stages)
     k_p, k_g = jax.random.split(jax.random.fold_in(key, 7))
     return draws + sampler_draws(k_p, B, n) + sampler_draws(k_g, B, n)
 
