@@ -3,11 +3,13 @@
 
 ``nearest_neighbor`` is the plain single-sample form; ``chamfer_distance`` goes
 through K2 (``ops/chamfer_cuda.chamfer_sums_fused``), the batched paths
-through K1. ``knn`` / ``batched_knn`` take candidates from K4 / K3
-(``ops/knn_cuda.py``) and merge them with an exact ``torch.topk``; for M <= 1024
-points they take the exact top-k of the full distance matrix, as the JAX
-package does. ``batched_compute_normals`` is the reference's kNN + PCA normal
-estimator (loss_functions.py:129-170) with the closed-form 3x3 eigensolver
+through K1. ``knn`` / ``batched_knn`` go through K4 / K3 (``ops/knn_cuda.py``),
+which keep the k best subtile-min candidates of each point on chip; for
+M <= 1024 points they take the exact k smallest of the full distance matrix in
+plain PyTorch, as the JAX package does outside any kernel. Equal distances keep
+the order of their indices in both (a stable selection).
+``batched_compute_normals`` is the reference's kNN + PCA normal estimator
+(loss_functions.py:129-170) with the closed-form 3x3 eigensolver
 ``smallest_eigenvector``.
 
 The subtile of the candidate path follows the TPU kernel's rule: the JAX
@@ -29,7 +31,7 @@ import torch
 
 from meshrcnn_tpu_torch.ops.chamfer_cuda import chamfer_sums_fused, nn_one_way
 from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
-from meshrcnn_tpu_torch.ops.knn_cuda import knn_candidates, knn_candidates_batched
+from meshrcnn_tpu_torch.ops.knn_cuda import knn_topk, knn_topk_batched, smallest_k_stable
 
 EXACT_MAX_POINTS = 1024     # at most this many reference points: exact top-k
 START_SUBTILE = 128         # the subtile rule's first guess (see the module note)
@@ -65,37 +67,19 @@ def _sqdist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (diff * diff).sum(-1)
 
 
-def _top_k(d: torch.Tensor, k: int):
-    """The k smallest entries of each row of d, ascending, and their positions;
-    a row with fewer than k entries repeats its last (the JAX package's rule)."""
-    vals, pos = torch.topk(d, min(k, d.shape[-1]), dim=-1, largest=False, sorted=True)
-    if vals.shape[-1] < k:
-        rep = k - vals.shape[-1]
-        vals = torch.cat([vals, vals[..., -1:].expand(*vals.shape[:-1], rep)], -1)
-        pos = torch.cat([pos, pos[..., -1:].expand(*pos.shape[:-1], rep)], -1)
-    return vals, pos
-
-
-def _merge(vals: torch.Tensor, cand: torch.Tensor, k: int):
-    """Exact top-k over the candidates: (dists, idx int32)."""
-    top, pos = _top_k(vals, k)
-    return top, torch.gather(cand, -1, pos).to(torch.int32)
-
-
 @torch.no_grad()
 def knn(p: torch.Tensor, q: torch.Tensor, k: int, tile: int = 2048):
     """k nearest neighbours in q [M,3] of every point of p [N,3] (squared
     distances, ascending) -> (dists [N,k], idx [N,k] int32).
 
-    Exact for M <= 1024; else the top-k of K4's candidates, which loses a true
-    neighbour only where two share a run of ``s`` points.
+    Exact for M <= 1024; else K4, the k best of the subtile-min candidates,
+    which loses a true neighbour only where two share a run of ``s`` points.
     """
     M = q.shape[0]
     if M <= EXACT_MAX_POINTS:
-        top, pos = _top_k(_sqdist(p, q), k)
+        top, pos = smallest_k_stable(_sqdist(p, q), k)
         return top, pos.to(torch.int32)
-    vals, cand = knn_candidates(p.contiguous(), q.contiguous(), knn_subtile(M, k, tile))
-    return _merge(vals, cand, k)
+    return knn_topk(p.contiguous(), q.contiguous(), knn_subtile(M, k, tile), k)
 
 
 @torch.no_grad()
@@ -104,10 +88,9 @@ def batched_knn(p: torch.Tensor, q: torch.Tensor, k: int, tile: int = 2048):
     idx [B,N,k]); the candidate path is one K3 launch for the whole batch."""
     M = q.shape[1]
     if M <= EXACT_MAX_POINTS:
-        top, pos = _top_k(_sqdist(p, q), k)
+        top, pos = smallest_k_stable(_sqdist(p, q), k)
         return top, pos.to(torch.int32)
-    vals, cand = knn_candidates_batched(p.contiguous(), q.contiguous(), knn_subtile(M, k, tile))
-    return _merge(vals, cand, k)
+    return knn_topk_batched(p.contiguous(), q.contiguous(), knn_subtile(M, k, tile), k)
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:

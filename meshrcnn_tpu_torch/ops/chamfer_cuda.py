@@ -10,6 +10,9 @@ and how it is laid out. ``ops/cuda_build.py`` builds it on first use.
 
 ``nn_bidir`` is the wrapper. For a CUDA tensor it launches the kernel or
 raises; it runs the plain twin ``nn_bidir_plain`` only for tensors on the CPU.
+A launch is one sweep over the 128 x 256 tile pairs of ``sweep_plan`` (every
+distance computed once, for both directions) and a small kernel that resolves
+the packed keys the sweep leaves to (distance, index).
 ``nn_bidir.launches`` counts kernel launches, ``chamfer_sums_fused.launches``
 those of them made for K2 (it adds the change of ``nn_bidir.launches``).
 
@@ -23,6 +26,7 @@ to ``_bwd_batched``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,15 +34,22 @@ from meshrcnn_tpu_torch.ops import cuda_build
 from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
 
 SOURCE = cuda_build.CSRC / "chamfer_nn.cu"
-_QUERIES_PER_BLOCK = 512   # THREADS * QPT in the CUDA source
-_TILE = 256                # TILE in the CUDA source
+TILE_P = 128               # TILE_P and TILE_Q in the CUDA source: the points of p
+TILE_Q = 256               # and of q in a block's tile pair
 PLAIN_TILE = 2048          # reference points per step of the plain twin
 
 
-def _library() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked for once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load("chamfer_nn", {
-        "chamfer_nn_bidir": [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]})
+        "chamfer_nn_bidir": [vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]}).chamfer_nn_bidir
 
 
 def _check(p: torch.Tensor, q: torch.Tensor) -> None:
@@ -57,35 +68,32 @@ def _check(p: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError("both clouds need at least one point")
 
 
-def _splits(blocks: int, points: int, device: torch.device) -> int:
-    """Reference-range spans per query block, so the grid holds ~4 blocks an SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // blocks), -(-points // _TILE)))
+def sweep_plan(B: int, N: int, M: int):
+    """The kernel's launch: (grid, 64-bit key words of scratch). Block (a, b, z)
+    of the grid holds rows [a*TILE_P, min((a+1)*TILE_P, N)) of p against columns
+    [b*TILE_Q, min((b+1)*TILE_Q, M)) of q in sample z; the shape does not depend
+    on the card or on B."""
+    return (-(-N // TILE_P), -(-M // TILE_Q), B), B * (N + M)
 
 
 def _launch(p: torch.Tensor, q: torch.Tensor):
     if p.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {p.device}")
     B, N, M = p.shape[0], p.shape[1], q.shape[1]
-    sp = _splits(B * -(-N // _QUERIES_PER_BLOCK), M, p.device)
-    sq = _splits(B * -(-M // _QUERIES_PER_BLOCK), N, p.device)
-    scratch = max(sp * N, sq * M) * B
-    part_d = torch.empty(scratch, dtype=torch.float32, device=p.device)
-    part_i = torch.empty(scratch, dtype=torch.int32, device=p.device)
-    d_p = torch.empty((B, N), dtype=torch.float32, device=p.device)
-    i_p = torch.empty((B, N), dtype=torch.int32, device=p.device)
-    d_q = torch.empty((B, M), dtype=torch.float32, device=p.device)
-    i_q = torch.empty((B, M), dtype=torch.int32, device=p.device)
+    grid, words = sweep_plan(B, N, M)
+    # one allocation: the keys, then distances and indices of both sides
+    buf = torch.empty(2 * words, dtype=torch.int64, device=p.device)
+    out = buf[words:].view(torch.int32)
+    d, idx = out[:words].view(torch.float32), out[words:]
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = _library().chamfer_nn_bidir(
-            p.data_ptr(), q.data_ptr(), B, N, M, sp, sq,
-            part_d.data_ptr(), part_i.data_ptr(), d_p.data_ptr(), i_p.data_ptr(),
-            d_q.data_ptr(), i_q.data_ptr(), stream)
+        err = _kernel()(p.data_ptr(), q.data_ptr(), B, N, M, grid[0], grid[1],
+                        buf.data_ptr(), d.data_ptr(), idx.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     nn_bidir.launches += 1
-    return d_p, i_p, d_q, i_q
+    return (d[:B * N].view(B, N), idx[:B * N].view(B, N),
+            d[B * N:].view(B, M), idx[B * N:].view(B, M))
 
 
 def nn_bidir(p: torch.Tensor, q: torch.Tensor):
@@ -108,6 +116,8 @@ def nn_one_way(p: torch.Tensor, q: torch.Tensor):
 
     Difference form with the kernel's operation order, first-occurrence argmin
     inside a tile and strict ``<`` across tiles, so ties go to the lowest index.
+    A NaN distance reads as +inf and never wins; a point with no distance below
+    +inf gets (+inf, 0), as in the kernel.
     """
     B, N = p.shape[0], p.shape[1]
     best = torch.full((B, N), float("inf"), dtype=torch.float32, device=p.device)
@@ -118,6 +128,7 @@ def nn_one_way(p: torch.Tensor, q: torch.Tensor):
         dy = p[:, :, None, 1] - qt[:, None, :, 1]
         dz = p[:, :, None, 2] - qt[:, None, :, 2]
         d = dx * dx + dy * dy + dz * dz                       # [B, N, T]
+        d = torch.where(torch.isnan(d), float("inf"), d)
         tmin, targ = torch.min(d, dim=2)
         take = tmin < best
         best = torch.where(take, tmin, best)

@@ -120,9 +120,19 @@ def main() -> None:
     print(f"untraced wall {wall_ms:.3f} ms/batch; kernel time {busy_ms:.3f} ms/batch "
           f"(traced); device busy share {100 * busy_ms / wall_ms:.1f}%")
     print(f"  {'kernel':70s} {'ms/batch':>9s} {'calls/batch':>11s}")
-    for e in kernels[:25]:
+    # the 25 longest, then the port's own kernels and any top-k or sort kernel,
+    # whatever their rank (cubify sorts once a batch; the kNN merge must not)
+    def selects(e):
+        key = e.key.lower()
+        return any(w in key for w in ("topk", "sort", "radix")) and "searchsorted" not in key
+
+    own = ("nn_sweep_kernel", "nn_resolve_kernel", "knn_sweep_kernel", "knn_merge_kernel")
+    rest = [e for e in kernels[25:] if selects(e) or any(w in e.key for w in own)]
+    for e in kernels[:25] + rest:
         print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3 / n:9.3f} "
               f"{e.count / n:11.1f}")
+    print("top-k and sort kernels in the trace, calls/batch: "
+          f"{ {e.key[:50]: e.count / n for e in kernels if selects(e)} or 'none'}")
 
 
 if __name__ == "__main__":

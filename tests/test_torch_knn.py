@@ -1,6 +1,7 @@
 """K3 / K4 (ops/knn_cuda.py), K2 and the kNN of ops/chamfer.py against the JAX package.
 
-On the CPU the K3 wrapper runs its plain twin. The JAX side is the Pallas
+On the CPU the K3 wrapper runs its plain twin, whose candidate stage is
+``knn_candidates_plain``. The JAX side is the Pallas
 kernel itself, run in interpret mode (``pl.pallas_call(..., interpret=True)``,
 patched in for the test), and its CPU path, ``knn`` / ``batched_knn``.
 Tolerances and why:
@@ -57,7 +58,7 @@ def _set_agreement(a, b):
 @pytest.mark.parametrize("N,M,s", [(100, 77, 8), (300, 1000, 16), (64, 700, 64)])
 def test_k3_twin_is_the_first_minimum_of_each_run(N, M, s):
     p, q = _cloud(0, 2, N, lattice=True), _cloud(1, 2, M, lattice=True)
-    vals, idx = knn_cuda.knn_candidates_batched(torch.from_numpy(p), torch.from_numpy(q), s)
+    vals, idx = knn_cuda.knn_candidates_plain(torch.from_numpy(p), torch.from_numpy(q), s)
     want_v, want_i = _brute_force(p, q, s)
     assert vals.shape == (2, N, -(-M // s)) and idx.dtype == torch.int32
     np.testing.assert_array_equal(vals.numpy(), want_v)
@@ -71,7 +72,7 @@ def test_k3_twin_matches_the_pallas_kernel_interpreted(monkeypatch, N, M, s):
     p, q = _cloud(2, 2, N), _cloud(3, 2, M)
     jv, ji = chamfer_pallas.knn_candidates_pallas_batched(jnp.asarray(p), jnp.asarray(q),
                                                           subtile=s)
-    vals, idx = knn_cuda.knn_candidates_batched(torch.from_numpy(p), torch.from_numpy(q), s)
+    vals, idx = knn_cuda.knn_candidates_plain(torch.from_numpy(p), torch.from_numpy(q), s)
     C = vals.shape[-1]
     jv, ji = np.asarray(jv), np.asarray(ji)
     # the kernel's extra candidates come from its padding of q and never win
@@ -83,10 +84,10 @@ def test_k3_twin_matches_the_pallas_kernel_interpreted(monkeypatch, N, M, s):
 def test_k4_is_a_b1_launch_of_k3_and_k2_of_k1():
     p, q = _cloud(4, 3, 200), _cloud(5, 3, 300)
     tp, tq = torch.from_numpy(p), torch.from_numpy(q)
-    vals, idx = knn_cuda.knn_candidates_batched(tp, tq, 16)
+    vals, idx = knn_cuda.knn_topk_batched(tp, tq, 16, 10)
     sums = chamfer_cuda.chamfer_sums_batched(tp, tq)
     for b in range(3):
-        v1, i1 = knn_cuda.knn_candidates(tp[b], tq[b], 16)
+        v1, i1 = knn_cuda.knn_topk(tp[b], tq[b], 16, 10)
         assert torch.equal(v1, vals[b]) and torch.equal(i1, idx[b])
         for one, batched in zip(chamfer_cuda.chamfer_sums_fused(tp[b], tq[b]), sums):
             assert torch.equal(one, batched[b])
@@ -104,23 +105,31 @@ def test_plain_tile_size_does_not_change_the_candidates(monkeypatch):
 @pytest.mark.parametrize("case", ["subtile", "zero_subtile", "dtype", "width", "batch"])
 def test_k3_wrapper_rejects_what_the_kernel_does_not_take(case):
     p, q = torch.zeros((2, 5, 3)), torch.zeros((2, 4, 3))
-    args = {"subtile": (p, q, 48), "zero_subtile": (p, q, 0), "dtype": (p.double(), q, 8),
-            "width": (p[..., :2], q, 8), "batch": (p, q[:1], 8)}[case]
+    args = {"subtile": (p, q, 48, 3), "zero_subtile": (p, q, 0, 3),
+            "dtype": (p.double(), q, 8, 3), "width": (p[..., :2], q, 8, 3),
+            "batch": (p, q[:1], 8, 3)}[case]
     with pytest.raises((TypeError, ValueError)):
-        knn_cuda.knn_candidates_batched(*args)
+        knn_cuda.knn_topk_batched(*args)
+
+
+@pytest.mark.parametrize("s,k", [(2, 3), (8, 0), (8, knn_cuda.MAX_K + 1)])
+def test_k3_wrapper_names_the_limits_of_subtile_and_k(s, k):
+    p = torch.zeros((1, 5, 3))
+    with pytest.raises(ValueError, match=f"{knn_cuda.MAX_K}|at least 4"):
+        knn_cuda.knn_topk_batched(p, p, s, k)
 
 
 def test_cpu_tensors_take_the_k3_twin_and_count_no_launch():
-    counts = (knn_cuda.knn_candidates_batched.launches, knn_cuda.knn_candidates.launches,
+    counts = (knn_cuda.knn_topk_batched.launches, knn_cuda.knn_topk.launches,
               chamfer_cuda.chamfer_sums_fused.launches)
     p = torch.from_numpy(_cloud(8, 1, 40))
-    knn_cuda.knn_candidates(p[0], p[0], 8)
+    knn_cuda.knn_topk(p[0], p[0], 8, 10)
     chamfer_cuda.chamfer_sums_fused(p[0], p[0])
-    assert counts == (knn_cuda.knn_candidates_batched.launches,
-                      knn_cuda.knn_candidates.launches,
+    assert counts == (knn_cuda.knn_topk_batched.launches,
+                      knn_cuda.knn_topk.launches,
                       chamfer_cuda.chamfer_sums_fused.launches)
     with pytest.raises(ValueError):
-        knn_cuda._launch(p, p, 8)
+        knn_cuda._launch(p, p, 8, 10)
 
 
 @pytest.mark.parametrize("M,want", [(700, 8), (1500, 8), (2500, 16), (10000, 64),
