@@ -8,19 +8,24 @@ Phases, each of which fails the run:
   2. hold each kernel against its plain PyTorch twin on the card, and time it
      (K1 and K3; K2 and K4 are B=1 launches of them, held to the batched
      launch's row): K1 bit-equal in distances and indices on ragged sizes
-     around its 128- and 256-point tiles, on clouds full of ties, over five runs and with
-     NaN coordinates; K3 equal in values and indices for every subtile, for k
-     from 1 to the largest, with fewer runs than k and over many spans;
-  3. drive the port's paths at the full width of the bench recipe, each with
-     the launch counts set to 0 just before it and read just after, and check
-     that it went through its kernels: ShapeNet eval (K1 x 4 a batch), the
-     train step (K1 x 3 a step, no K3), the reference kNN + PCA normal
-     estimator in training and eval (K3 x 6 a step and a batch), and the
-     single-sample chamfer distance and kNN (K2, K4);
-  4. run a small model on the card and on the CPU with the same weights: the
-     eval forward, one train step, and the backward of each module the step
-     differentiates through (gradients within 1e-4 of each tensor's scale in
-     float32, 1e-9 in float64).
+     around its 128- and 256-point tiles, on clouds full of ties, over five runs,
+     with NaN coordinates and at the Pix3D eval's [4, 10000, 3] (stage chamfers,
+     F1 pair) and [12, 10000, 3] (ranked slots); K3 equal in
+     values and indices for every subtile, for k from 1 to the largest, with
+     fewer runs than k and over many spans; and greedy NMS (plain PyTorch, no
+     kernel) equal in keep sets and order to a sequential numpy reference,
+     with tied scores, invalid rows and class offsets;
+  3. drive the port's paths at the full width of their bench recipes, each
+     with the launch counts set to 0 just before it and read just after, and
+     check that it went through its kernels: ShapeNet eval (K1 x 4 a batch),
+     the train step (K1 x 3 a step, no K3), Pix3D eval with ranked AP (K1 x 5
+     a batch; bfloat16 detection stack, held against its float32 FPN), the
+     reference kNN + PCA normal estimator in training and eval (K3 x 6 a step
+     and a batch), and the single-sample chamfer distance and kNN (K2, K4);
+  4. run small models on the card and on the CPU with the same weights: the
+     ShapeNet and Pix3D eval forwards, one ShapeNet train step, and the
+     backward of each module the step differentiates through (gradients
+     within 1e-4 of each tensor's scale in float32, 1e-9 in float64).
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without that line when there is no CUDA device or any phase fails.
@@ -227,9 +232,14 @@ def _k1_cases(dev):
             and got[2][0, 300].item() == float("inf")
             and not bool(((got[1][0] == 300) & (got[0][0] < float("inf"))).any())):
         _fail("K1 NaN: a NaN point has a neighbour or is one")
+    # the Pix3D eval's shapes: B = 4 clouds of 10k points (stage chamfers, F1 pair)
+    # and B * D = 12 (ranked per-slot F1)
+    for n in (4, 12):
+        check(f"B={n} 10k", torch.rand((n, 10000, 3), generator=g) * 2 - 1,
+              torch.rand((n, 10000, 3), generator=g) * 2 - 1, numpy_too=False)
     print(f"[k1 cases] ragged+ties, {len(sizes) * 2} mixed sizes of {sizes}, p == q, one "
-          "repeated point, B=1 rows of B=3, NaN: bit-equal to the twin; lattice cases equal "
-          "to numpy's first minimum")
+          "repeated point, B=1 rows of B=3, NaN, [4,10000,3], [12,10000,3]: bit-equal to "
+          "the twin; lattice cases equal to numpy's first minimum")
 
 
 def _k3_cases(dev):
@@ -260,6 +270,75 @@ def _k3_cases(dev):
     check("many spans, largest k", big, big, 8, knn_cuda.MAX_K)
     print("[k3 cases] lattice s=8,16,32,64 x k=1,10,16, fewer runs than k, one run, "
           f"k={knn_cuda.MAX_K}, many spans: values and indices equal to the twin")
+
+
+def _iou_f32(a, b):
+    """numpy float32 IoU in the port's operation order (``ops/boxes.box_iou``):
+    every step is one correctly rounded float32 operation on both sides."""
+    def area(x):
+        return (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.maximum(rb - lt, np.float32(0))
+    inter = wh[..., 0] * wh[..., 1]
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return inter / np.maximum(union, np.float32(1e-9))
+
+
+def _greedy_nms(bx, sc, vd, thr, max_keep):
+    """Sequential greedy NMS: take the best remaining valid box (lower index on
+    equal scores), drop what it overlaps beyond thr, repeat."""
+    alive = vd.copy()
+    s = np.where(vd, sc, -np.inf)
+    iou = _iou_f32(bx, bx)
+    order = []
+    while alive.any() and len(order) < max_keep:
+        i = int(np.argmax(np.where(alive, s, -np.inf)))
+        order.append(i)
+        alive &= ~(iou[i] > np.float32(thr))
+        alive[i] = False
+    return order + [-1] * (max_keep - len(order))
+
+
+def phase_nms():
+    """Greedy NMS on the card against ``_greedy_nms``: 20 sets of 1000
+    clustered boxes (the RPN's batch of 4 images x 5 levels) with scores on a
+    coarse grid and invalid rows, and 4 sets of 576 class-labelled boxes (the
+    box head's prefilter) through the class offset. Keep sets and order equal."""
+    import torch
+
+    from meshrcnn_tpu_torch.ops import nms
+    rng = np.random.RandomState(7)
+
+    def sets(S, N, thr, max_keep, labelled):
+        c = rng.uniform(30, 200, (S, 40, 2))[np.arange(S)[:, None], rng.randint(0, 40, (S, N))]
+        c = c + rng.randn(S, N, 2) * 6
+        wh = rng.uniform(8, 60, (S, N, 2))
+        bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+        sc = (rng.randint(0, 50, (S, N)) / 50.0).astype(np.float32)
+        vd = rng.rand(S, N) > 0.1
+        labels = rng.randint(1, 10, (S, N)).astype(np.int64)
+        dev = [torch.from_numpy(x).cuda() for x in (bx, sc, vd, labels)]
+        sweeps = nms.nms_mask.sweeps
+        if labelled:
+            order, keep = nms.batched_nms_mask(dev[0], dev[1], dev[3], dev[2], thr, max_keep)
+            top = np.where(vd[..., None], bx, 0).reshape(S, -1).max(1)[:, None, None]
+            bx = bx + labels[..., None].astype(np.float32) * (top + np.float32(1))
+        else:
+            order, keep = nms.nms_mask(dev[0], dev[1], dev[2], thr, max_keep)
+        order = order.cpu().numpy()
+        for s in range(S):
+            want = _greedy_nms(bx[s], sc[s], vd[s], thr, max_keep)
+            if order[s].tolist() != want or not np.array_equal(keep[s].cpu().numpy(),
+                                                               np.asarray(want) >= 0):
+                _fail(f"NMS set {s} of [{S},{N}] differs from sequential greedy")
+        return int(keep.sum()), nms.nms_mask.sweeps - sweeps
+
+    kept, sweeps = sets(20, 1000, 0.7, 512, False)
+    kept_c, sweeps_c = sets(4, 576, 0.5, 3, True)
+    print(f"[nms] 20 x 1000 boxes at IoU 0.7 ({kept} kept, {sweeps} sweeps) and 4 x 576 "
+          f"class-offset boxes at 0.5 ({kept_c} kept, {sweeps_c} sweeps): equal to "
+          "sequential greedy in keep sets and order")
 
 
 def phase_kernels(card: str):
@@ -399,6 +478,108 @@ def phase_slice(batches: int = 8):
             "chamfer_sums_fused": 0, "knn_topk": 0}
     if counts != want:
         _fail(f"eval launched {counts}, want {want}")
+
+
+def _bf16_fpn_check(fpn, images, bound: float = 5e-2):
+    """The bfloat16 FPN against a float32 copy of itself on the same images:
+    max |bf16 - f32| / max |f32| of P2..P5, gated at ``bound``. Each conv
+    rounds its output to bfloat16 (4e-3 relative); on the CPU at 64x64 and
+    96x96 the pyramid ends ~1e-2 from float32 (tests/test_torch_pix3d_modules.py)."""
+    import copy
+
+    import torch
+
+    from meshrcnn_tpu_torch.models.fpn import ResNetFPN
+    f32 = ResNetFPN(dtype=torch.float32).to(images.device).eval()
+    f32.load_state_dict(copy.deepcopy(fpn.state_dict()))
+    with torch.no_grad():
+        low, full = fpn(images), f32(images)
+    errs = [((a.float() - b).abs().max() / b.abs().max()).item() for a, b in zip(low[:4], full)]
+    print(f"[pix3d bf16] FPN P2..P5 bfloat16 vs float32, max error / max |f32|: "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (bound {bound}); P2 max |f32| "
+          f"{full[0].abs().max().item():.4g}")
+    if not all(e < bound for e in errs):
+        _fail("the bfloat16 FPN is further from float32 than its bound")
+
+
+def phase_pix3d_eval(kernels, batches: int = 4):
+    """Pix3D eval at full width (harness.pix3d_bench_setup): ResNet-50 FPN with
+    a bfloat16 detection stack at 224x224, RPN 1000 / 512, 3 detections an
+    image, 24^3 voxels, capacities 4096/8192/16384, 10k-point clouds, B=4,
+    ranked AP. K1 five times a batch: three stage chamfers and the F1 pair at
+    [4, 10000, 3], the mesh F1 of all B * D slots at [12, 10000, 3]; both
+    shapes are held bit-equal to the twin in ``_k1_cases``."""
+    import torch
+
+    from meshrcnn_tpu_torch.harness import pix3d_bench_setup, validate_pix3d
+    from meshrcnn_tpu_torch.models.rpn import generate_anchors, select_proposals
+    from meshrcnn_tpu_torch.ops import nms
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
+
+    dev = torch.device("cuda")
+    model, config, loader = pix3d_bench_setup(batches, dev)       # random weights, seed 0
+    B = loader[0].images.shape[0]
+    step = make_eval_step(model)
+    images = torch.from_numpy(loader[0].images).to(dev)
+    sweeps = nms.nms_mask.sweeps
+    out = step(images)
+    sweeps = nms.nms_mask.sweeps - sweeps
+    mrcnn = model.backbone
+    with torch.no_grad():                      # the RPN's NMS alone, on the same batch
+        feats = mrcnn.backbone(images)
+        rpn_sweeps = nms.nms_mask.sweeps
+        select_proposals(*mrcnn.rpn_head(feats),
+                         generate_anchors([f.shape[2:] for f in feats], (224, 224), dev),
+                         (224, 224), mrcnn.rpn_pre_nms_top_n, mrcnn.rpn_post_nms_top_n)
+        rpn_sweeps = nms.nms_mask.sweeps - rpn_sweeps
+    print(f"[pix3d] NMS sweeps in one forward: RPN {rpn_sweeps} (20 sets of 1000), box "
+          f"head {sweeps - rpn_sweeps} (4 sets of 576)")
+    det, ovf = out.detections, out.overflow
+    print(f"[pix3d] first batch: valid detections {det.valid.sum(1).tolist()}, labels "
+          f"{det.labels.tolist()}, scores {[[round(s, 4) for s in r] for r in det.scores.tolist()]}; "
+          f"cubify overflow verts {ovf.verts.tolist()} faces {ovf.faces.tolist()} edges "
+          f"{ovf.edges.tolist()}; mesh verts {out.mesh.num_verts().tolist()}")
+    _bf16_fpn_check(model.backbone.backbone, images)
+
+    per_batch = []
+
+    def checked(x):
+        o = step(x)
+        per_batch.append(o.detections.valid.sum(1))
+        return o
+
+    calls, sweeps = nms.nms_mask.calls, nms.nms_mask.sweeps
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = validate_pix3d(checked, loader, config, 10,
+                         uniform_from(torch.Generator(device=dev).manual_seed(0)), device=dev,
+                         print_freq=10 ** 9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    calls, sweeps = nms.nms_mask.calls - calls, nms.nms_mask.sweeps - sweeps
+
+    scalars = {k: v for k, v in res.items() if k != "confusion"}
+    print(f"[pix3d] metrics {json.dumps(scalars)}")
+    steady = res["batch_time"]
+    print(f"[pix3d] {batches} batches of {B} in {wall:.3f} s; steady {steady * 1e3:.2f} "
+          f"ms/batch = {B / steady:.3f} samples/s (first batch {res['warmup_time'] * 1e3:.2f} "
+          f"ms); NMS {calls} calls, {sweeps / max(calls, 1):.2f} sweeps a call; launches {counts}")
+    if not all(np.isfinite(v) for v in scalars.values()):
+        _fail("non-finite Pix3D eval metric")
+    # AP_mesh is the reference's AUC over percent precision and recall: [0, 1e4]
+    unit = [k for k in scalars if k.startswith(("AP_box", "AP_mask", "AP50_", "AP_mesh_ranked",
+                                                "F1@"))]
+    if not (all(0.0 <= scalars[k] <= 1.0 for k in unit) and 0.0 <= scalars["AP_mesh"] <= 1e4):
+        _fail(f"a Pix3D AP or F1 is out of range: {scalars}")
+    if not all(bool((v > 0).all()) for v in per_batch):
+        _fail(f"an image has no valid detection: {[v.tolist() for v in per_batch]}")
+    want = {"chamfer_nn_bidir": 5 * batches, "knn_topk_batched": 0,
+            "chamfer_sums_fused": 0, "knn_topk": 0}
+    if counts != want:
+        _fail(f"Pix3D eval launched {counts}, want {want}")
+    kernels["chamfer_nn_bidir"]["launches"] += counts["chamfer_nn_bidir"]
 
 
 def _train(tag, model, config, loader, dev):
@@ -576,6 +757,60 @@ def phase_small_card_vs_cpu():
         print(f"[small] {name} card vs cpu: relative error {err:.3e}")
         if not err < 1e-4:
             _fail(f"{name} differs between the card and the CPU")
+
+
+def phase_small_pix3d_card_vs_cpu():
+    """The tiny Pix3D model (tests/test_pix3d.py TINY: 64x64 images, RPN 64 /
+    32, capacities 256/512/1024, float32) in eval on the card and on the CPU
+    with the same weights. Validity and labels identical; on valid slots boxes
+    within 1e-3 px, and scores, mask probabilities, voxels and stage vertices
+    within 1e-4 relative to scale (f32 on both, TF32 off: only summation order
+    differs). Vertices are compared where cubify gave both devices the same
+    mesh; a slot whose mesh differs must hold a voxel within 1e-5 of the
+    threshold on one device, a decision the rounding may flip."""
+    import torch
+
+    from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
+    from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
+
+    torch.manual_seed(4)
+    model = Pix3DModel(num_classes=10, voxel_out_channels=8, vert_capacity=256,
+                       face_capacity=512, edge_capacity=1024, num_refinement_stages=3,
+                       rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32, detections_per_img=3,
+                       backbone_dtype="float32")
+    images = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32))
+    cpu = make_eval_step(model)(images)
+    gpu = make_eval_step(model.to("cuda"))(images.to("cuda"))
+    cd, gd = cpu.detections, gpu.detections
+    if not (torch.equal(gd.valid.cpu(), cd.valid) and torch.equal(gd.labels.cpu(), cd.labels)):
+        _fail("Pix3D detections' validity or labels differ between the card and the CPU")
+    v = cd.valid
+    slots = cpu.mesh_valid
+
+    def rel(a, b):
+        return ((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+
+    box_err = (gd.boxes.cpu()[v] - cd.boxes[v]).abs().max().item()
+    errs = {"scores": rel(gd.scores[v.cuda()], cd.scores[v]),
+            "mask_probs": rel(gpu.mask_probs[v.cuda()], cpu.mask_probs[v]),
+            "voxels": rel(gpu.voxels[slots.cuda()], cpu.voxels[slots])}
+    same_mesh = torch.tensor([torch.equal(gpu.mesh.faces[i].cpu(), cpu.mesh.faces[i])
+                              and torch.equal(gpu.mesh.verts_mask[i].cpu(), cpu.mesh.verts_mask[i])
+                              for i in range(slots.shape[0])]) & slots
+    for i in torch.nonzero(slots & ~same_mesh).flatten().tolist():
+        near = (cpu.voxels[i] - model.cubify_threshold).abs().min().item()
+        print(f"[small pix3d] slot {i}: cubify meshes differ; nearest voxel to the "
+              f"threshold {near:.2e}")
+        if not near < 1e-5:
+            _fail(f"slot {i}'s cubify mesh differs between the card and the CPU")
+    m = same_mesh.cuda()
+    for s, (a, b) in enumerate(zip(gpu.stage_verts, cpu.stage_verts)):
+        errs[f"stage {s} verts"] = rel(a[m], b[same_mesh]) if bool(same_mesh.any()) else 0.0
+    print(f"[small pix3d] {int(v.sum())} valid detections, {int(same_mesh.sum())} of "
+          f"{int(slots.sum())} meshes identical; boxes max |card - cpu| {box_err:.3e} px; "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    if not (box_err <= 1e-3 and all(e < 1e-4 for e in errs.values())):
+        _fail("the tiny Pix3D eval forward differs between the card and the CPU")
 
 
 def _distance(a: dict, b: dict, keys) -> float:
@@ -772,11 +1007,14 @@ def main() -> None:
 
     card = phase_build()
     kernels = phase_kernels(card)
+    phase_nms()
     phase_slice()
     phase_train(kernels)
+    phase_pix3d_eval(kernels)
     phase_estimator(kernels)
     phase_single(kernels)
     phase_small_card_vs_cpu()
+    phase_small_pix3d_card_vs_cpu()
     phase_small_train_card_vs_cpu()
     phase_small_backward_card_vs_cpu()
 

@@ -1,7 +1,7 @@
 """Configuration dataclasses (counterpart of meshrcnn_tpu/core/config.py).
 
-The port keeps its own copies of the ShapeNet model's, the losses' and the
-train loop's settings. One field is the port's own: ``TrainConfig.face_normals``
+The port keeps its own copies of the ShapeNet and Pix3D models', the losses'
+and the train loop's settings. One field is the port's own: ``TrainConfig.face_normals``
 selects the normal estimator, which the JAX package reads from the environment
 (``MESHRCNN_FACE_NORMALS``).
 """
@@ -41,6 +41,19 @@ class ShapeNetConfig:
     voxel_only: bool = False
     num_voxels: int = 48
     image_size: int = 137
+    capacities: CapacityConfig = dataclasses.field(default_factory=CapacityConfig)
+
+
+@dataclasses.dataclass
+class Pix3DConfig:
+    """Pix3D model hyperparameters (reference: pix3d_model.py:22-28)."""
+    num_classes: int = 10
+    cubify_threshold: float = 0.2
+    vertex_feature_dim: int = 128
+    num_refinement_stages: int = 3
+    voxel_only: bool = False
+    num_voxels: int = 24
+    detections_per_img: int = 3
     capacities: CapacityConfig = dataclasses.field(default_factory=CapacityConfig)
 
 

@@ -134,6 +134,35 @@ class VertixRefineShapeNet(nn.Module):
         return verts + torch.tanh(self.linear1(feats)), feats
 
 
+class VertixRefinePix3D(nn.Module):
+    """Pix3D refinement cell (reference: layers.py:262-339): vert-align on one
+    RoI feature map (channels-last [N, p, p, alignment_size]), then the
+    non-residual cell's three GraphConvs, and the offset Linear(F + 3 -> 3)
+    of concat[pos, feats] + tanh."""
+
+    def __init__(self, use_input_features: bool = True, num_features: int = 128,
+                 ndims: int = 3, alignment_size: int = 256):
+        super().__init__()
+        self.use_input_features = use_input_features
+        in_f = ndims + alignment_size + (num_features if use_input_features else 0)
+        self.graphConv0 = GraphConv(in_f, num_features)
+        self.graphConv1 = GraphConv(num_features + ndims, num_features)
+        self.graphConv2 = GraphConv(num_features + ndims, num_features)
+        self.linear = nn.Linear(num_features + ndims, ndims, bias=False)
+
+    def forward(self, roi_features, verts, topo, image_size,
+                vert_feats: Optional[torch.Tensor] = None):
+        if (vert_feats is not None) != self.use_input_features:
+            raise ValueError("vert_feats must be given exactly when use_input_features")
+        parts = [verts, vert_align([roi_features], verts, image_size)]
+        if vert_feats is not None:
+            parts = [vert_feats] + parts
+        feats = self.graphConv0(torch.cat(parts, dim=-1), topo)
+        feats = self.graphConv1(torch.cat([verts, feats], dim=-1), topo)
+        feats = self.graphConv2(torch.cat([verts, feats], dim=-1), topo)
+        return verts + torch.tanh(self.linear(torch.cat([verts, feats], dim=-1))), feats
+
+
 class VoxelBranch(nn.Module):
     """Occupancy head (reference: layers.py:487-506): Conv3x3 -> Conv3x3 ->
     ConvTranspose(x2) -> Conv1x1 -> soft clamp -> sigmoid, with no activations

@@ -7,14 +7,21 @@ matches flax's (``BatchNorm``): eps 1e-5, flax momentum 0.9 is torch momentum
 0.1, eval uses the running statistics, train mode the batch's. Module names
 follow the flax scopes (``layer1_0`` ...) so ``utils/jax_params.py`` maps
 parameters by path.
+
+``dtype`` is the convolutions' compute dtype, as in flax: each conv casts its
+input and weight to it and returns it, and BatchNorm computes in its own
+parameters' dtype (float32), so every block's output is float32
+(``models/cast.py``). None computes in the parameters' dtype throughout.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from meshrcnn_tpu_torch.models.cast import Conv2d
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -23,10 +30,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     flax folds the *biased* batch variance, E[x^2] - E[x]^2 clamped at 0, into
     ``ra_var``; torch folds the unbiased one, which differs by n/(n-1) (1.3% at
     ResNet-50's c5 with B=3 at 137x137, n = 75). Normalisation uses the biased
-    batch variance in both.
+    batch variance in both. The input is cast to the parameters' dtype first,
+    as flax's ``BatchNorm(dtype=float32)`` promotes a bfloat16 conv output.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
@@ -47,20 +56,20 @@ class Bottleneck(nn.Module):
     """torchvision-style bottleneck (1x1 -> 3x3(stride) -> 1x1 x4) with BN."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 expansion: int = 4):
+                 expansion: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
         out = features * expansion
-        self.conv1 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.conv1 = Conv2d(in_features, features, 1, bias=False, compute_dtype=dtype)
         self.bn1 = _bn(features)
-        self.conv2 = nn.Conv2d(features, features, 3, stride=strides, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(features, features, 3, stride=strides, padding=1,
+                            bias=False, compute_dtype=dtype)
         self.bn2 = _bn(features)
-        self.conv3 = nn.Conv2d(features, out, 1, bias=False)
+        self.conv3 = Conv2d(features, out, 1, bias=False, compute_dtype=dtype)
         self.bn3 = _bn(out)
         self.has_downsample = in_features != out or strides != 1
         if self.has_downsample:
-            self.downsample_conv = nn.Conv2d(in_features, out, 1, stride=strides,
-                                             bias=False)
+            self.downsample_conv = Conv2d(in_features, out, 1, stride=strides,
+                                          bias=False, compute_dtype=dtype)
             self.downsample_bn = _bn(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,30 +80,43 @@ class Bottleneck(nn.Module):
         return torch.relu(y + residual)
 
 
-class ResNet50(nn.Module):
-    """images [B,H,W,3] -> (logits [B, num_classes], [c2, c3, c4, c5] NHWC)."""
+class ResNetBody(nn.Module):
+    """ResNet-50's stem and bottleneck stages, the trunk that ``ResNet50`` and the
+    Pix3D ``ResNetFPN`` share; ``stages`` maps NCHW images to [c2, c3, c4, c5]."""
 
-    def __init__(self, num_classes: int = 13, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
         self.bn1 = _bn(64)
         self.pool = nn.MaxPool2d(3, stride=2, padding=1)
         in_f = 64
         for i, (blocks, feats) in enumerate(zip(self.stage_sizes, (64, 128, 256, 512))):
             for j in range(blocks):
                 strides = 2 if (i > 0 and j == 0) else 1
-                setattr(self, f"layer{i + 1}_{j}", Bottleneck(in_f, feats, strides))
+                setattr(self, f"layer{i + 1}_{j}", Bottleneck(in_f, feats, strides, dtype=dtype))
                 in_f = feats * 4
-        self.fc = nn.Linear(in_f, num_classes)
 
-    def forward(self, images: torch.Tensor):
-        x = images.permute(0, 3, 1, 2)
+    def stages(self, x: torch.Tensor):
         x = self.pool(torch.relu(self.bn1(self.conv1(x))))
-        feature_maps = []
+        outs = []
         for i, blocks in enumerate(self.stage_sizes):
             for j in range(blocks):
                 x = getattr(self, f"layer{i + 1}_{j}")(x)
-            feature_maps.append(x.permute(0, 2, 3, 1))
-        logits = self.fc(x.mean(dim=(2, 3)))
-        return logits, feature_maps
+            outs.append(x)
+        return outs
+
+
+class ResNet50(ResNetBody):
+    """images [B,H,W,3] -> (logits [B, num_classes], [c2, c3, c4, c5] NHWC float32)."""
+
+    def __init__(self, num_classes: int = 13, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(stage_sizes, dtype)
+        self.fc = nn.Linear(2048, num_classes)
+
+    def forward(self, images: torch.Tensor):
+        maps = self.stages(images.permute(0, 3, 1, 2))
+        logits = self.fc(maps[-1].mean(dim=(2, 3)))
+        return logits, [c.permute(0, 2, 3, 1) for c in maps]

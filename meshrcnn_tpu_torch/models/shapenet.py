@@ -6,7 +6,10 @@
   -> refine stage 0 (no input features) -> stages 1..n-1 (with features),
 giving stage positions [cubify, s1, s2, s3].
 
-The backbone runs in float32; the JAX package's bf16 backbone is a later change.
+``backbone_dtype`` is the ResNet-50's conv compute dtype (``models/cast.py``).
+The JAX model defaults to "bfloat16"; the port defaults to "float32", its
+parity mode, and takes "bfloat16" when asked. Everything after the backbone
+is float32 either way.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from meshrcnn_tpu_torch.core.mesh import MeshBatch
+from meshrcnn_tpu_torch.models import cast
 from meshrcnn_tpu_torch.models.layers import (ResVertixRefineShapenet,
                                               VertixRefineShapeNet, VoxelBranch)
 from meshrcnn_tpu_torch.models.resnet import ResNet50
@@ -43,7 +47,8 @@ class ShapeNetModel(nn.Module):
                  voxel_out_channels: int = 48, vertex_feature_dim: int = 128,
                  num_refinement_stages: int = 3, voxel_only: bool = False,
                  upscale_factor: float = 4.8, vert_capacity: int = 8192,
-                 face_capacity: int = 16384, edge_capacity: int = 32768):
+                 face_capacity: int = 16384, edge_capacity: int = 32768,
+                 backbone_dtype: str = "float32"):
         super().__init__()
         self.cubify_threshold = cubify_threshold
         self.voxel_only = voxel_only
@@ -51,7 +56,7 @@ class ShapeNetModel(nn.Module):
         self.vert_capacity = vert_capacity
         self.face_capacity = face_capacity
         self.edge_capacity = edge_capacity
-        self.backbone = ResNet50(num_classes=num_classes)
+        self.backbone = ResNet50(num_classes=num_classes, dtype=cast.compute_dtype(backbone_dtype))
         self.voxelBranch = VoxelBranch(voxel_in_channels, voxel_out_channels)
         cell = ResVertixRefineShapenet if residual else VertixRefineShapeNet
         for i in range(num_refinement_stages):

@@ -16,7 +16,7 @@ model and optimizer are updated in place, and the mapping is:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -201,12 +201,14 @@ def make_train_step(config: TrainConfig, uniform: Uniform
     return step
 
 
-def make_eval_step(model: ShapeNetModel) -> Callable[[torch.Tensor], ShapeNetOutput]:
-    """The eval forward: BatchNorm on running statistics, no autograd graph.
+def make_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor], Any]:
+    """The eval forward of a ShapeNetModel or a Pix3DModel: NHWC images in,
+    BatchNorm on running statistics, no autograd graph.
 
-    The backbone runs in full float32: TF32, which keeps about three decimal
+    float32 layers run in full float32: TF32, which keeps about three decimal
     digits and which cuDNN convolutions use by default, is switched off for
-    matmuls and convolutions alike (process-wide PyTorch flags).
+    matmuls and convolutions alike (process-wide PyTorch flags). A bfloat16
+    backbone computes in bfloat16 regardless.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

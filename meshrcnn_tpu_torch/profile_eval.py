@@ -1,14 +1,15 @@
-"""Where the time of a full-width ShapeNet eval batch or train step goes, on a CUDA card.
+"""Where the time of a full-width eval batch or train step goes, on a CUDA card.
 
     python3 -m meshrcnn_tpu_torch.profile_eval [--windows 4,8,4,8] [--batches 8]
-                                               [--train] [--estimator]
+                                               [--train] [--estimator] [--pix3d]
 
 Builds the bench recipe (``harness.shapenet_bench_setup``, or with ``--train``
 ``harness.shapenet_train_setup``: ResNet-50 at 137x137, residual refinement,
 capacities 8192/16384/32768, 10k-point clouds, B=3, random weights from seed
-0; ``--estimator`` sets normal weight 0.1 and the kNN + PCA normals), runs one
-forward, then prints
-  1. ``validate`` (or ``train_epoch``) over each window of batches in
+0; ``--estimator`` sets normal weight 0.1 and the kNN + PCA normals; with
+``--pix3d`` the Pix3D eval recipe of ``harness.pix3d_bench_setup``, bfloat16
+detection stack at 224x224, B=4, ranked AP), runs one forward, then prints
+  1. ``validate`` (``validate_pix3d``, ``train_epoch``) over each window of batches in
      ``--windows``, in that order, in this one process: steady ms/batch and
      samples/s (the first batch of a window is booked apart), so windows of
      different length and repeats of one length can be compared;
@@ -16,7 +17,7 @@ forward, then prints
      ``torch.profiler`` trace of them: host and device time of each
      ``record_function`` range of the forward, the losses or metrics and the
      train step, and device time by kernel, with the kernels' share of the
-     untraced wall.
+     untraced wall, and with ``--pix3d`` the NMS sweeps a call.
 Needs a CUDA device; there is no CPU fallback.
 """
 from __future__ import annotations
@@ -27,8 +28,11 @@ import time
 import torch
 
 from meshrcnn_tpu_torch.core.config import LossWeights
-from meshrcnn_tpu_torch.harness import (shapenet_bench_setup, shapenet_eval_metrics,
-                                        shapenet_train_setup, train_epoch, validate)
+from meshrcnn_tpu_torch.harness import (pix3d_bench_setup, pix3d_eval_metrics,
+                                        shapenet_bench_setup, shapenet_eval_metrics,
+                                        shapenet_train_setup, train_epoch, validate,
+                                        validate_pix3d)
+from meshrcnn_tpu_torch.ops import nms
 from meshrcnn_tpu_torch.ops.sampling import uniform_from
 from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
                                                     make_eval_step, make_train_step)
@@ -45,6 +49,7 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--estimator", action="store_true",
                     help="normal weight 0.1 with kNN + PCA normals (face_normals=False)")
+    ap.add_argument("--pix3d", action="store_true", help="profile the Pix3D eval path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a CUDA device")
@@ -63,6 +68,10 @@ def main() -> None:
         state = create_train_state(model, config)
         step = make_train_step(config, uniform)
         step(state, Batch.from_host(batches[0], dev))
+    elif args.pix3d:
+        model, config, batches = pix3d_bench_setup(n_batches, dev, **overrides)
+        step = make_eval_step(model)
+        step(torch.from_numpy(batches[0].images).to(dev))
     else:
         model, config, batches = shapenet_bench_setup(n_batches, dev, **overrides)
         step = make_eval_step(model)
@@ -75,6 +84,10 @@ def main() -> None:
             _, meters = train_epoch(0, step, state, batches[:n], gcn_metrics(), dev,
                                     print_freq=10 ** 9)
             steady, first = meters["batch_time"].history[0], meters["warmup_time"].history[0]
+        elif args.pix3d:
+            res = validate_pix3d(step, batches[:n], config, 10, uniform, device=dev,
+                                 print_freq=10 ** 9)
+            steady, first = res["batch_time"], res["warmup_time"]
         else:
             res = validate(step, batches[:n], config, 13, uniform, device=dev,
                            print_freq=10 ** 9)
@@ -88,6 +101,13 @@ def main() -> None:
         for b in traced:
             if args.train:
                 m = step(state, Batch.from_host(b, dev))
+            elif args.pix3d:
+                gt = [torch.from_numpy(getattr(b, k)).to(dev) for k in
+                      ("boxes", "masks", "voxels", "gt_verts", "gt_faces", "gt_faces_mask")]
+                m = pix3d_eval_metrics(step(torch.from_numpy(b.images).to(dev)), *gt,
+                                       config.point_cloud_size, uniform,
+                                       normal_k=config.normal_k, tile=config.distance_tile,
+                                       face_normals=config.face_normals, ranked=True)
             else:
                 gt = [torch.from_numpy(getattr(b, k)).to(dev)
                       for k in ("voxels", "gt_verts", "gt_faces", "gt_faces_mask")]
@@ -98,9 +118,13 @@ def main() -> None:
             _ = {k: v.cpu() for k, v in m.items()}
         torch.cuda.synchronize()
 
+    calls, sweeps = nms.nms_mask.calls, nms.nms_mask.sweeps
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / len(traced)
+    calls, sweeps = nms.nms_mask.calls - calls, nms.nms_mask.sweeps - sweeps
+    if calls:
+        print(f"NMS: {calls / len(traced):.1f} calls a batch, {sweeps / calls:.2f} sweeps a call")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -4,11 +4,14 @@ The inverse of the layout rules in meshrcnn_tpu/utils/torch_convert.py:
   flax conv kernel [kh, kw, I, O]   -> torch Conv2d weight [O, I, kh, kw]
   flax Dense kernel [I, O]          -> torch Linear weight [O, I]
   flax BN scale/bias + mean/var     -> weight/bias + running_mean/running_var
-plus the voxel head's ConvTranspose: flax's ``ConvTranspose`` (no kernel
-transpose) applies its kernel spatially flipped relative to torch's
-``ConvTranspose2d``, so [kh, kw, I, O] -> [I, O, kh, kw] with both spatial axes
-reversed. GraphConv's ``w0``/``w1`` are Dense kernels; ``_LevelProjector``'s
-kernel is one too.
+plus ConvTranspose: flax's ``ConvTranspose`` (no kernel transpose) applies its
+kernel spatially flipped relative to torch's ``ConvTranspose2d``, so
+[kh, kw, I, O] -> [I, O, kh, kw] with both spatial axes reversed. Which
+kernels those are is read from the torch module (every ``nn.ConvTranspose2d``:
+the voxel head's ``deconv``, the mask head's ``conv5_mask``), never from the
+flax name. GraphConv's ``w0``/``w1`` are Dense kernels; ``_LevelProjector``'s
+kernel is one too. ``fc6`` of the box head takes channels-last features, the
+flax flatten order, so it maps as any Dense.
 
 Inputs are nested dicts of numpy arrays (``flax.core.unfreeze`` + ``np.asarray``
 of the trees); the torch module names follow the flax scopes, so a flax path
@@ -20,10 +23,10 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
-def _leaf_params(prefix: str, node: Mapping, out: Dict[str, torch.Tensor]) -> None:
-    name = prefix.rsplit(".", 1)[-1]
+def _leaf_params(prefix: str, node: Mapping, transposed: set, out: Dict) -> None:
     if "scale" in node:                                   # BatchNorm
         out[f"{prefix}.weight"] = node["scale"]
         out[f"{prefix}.bias"] = node["bias"]
@@ -35,7 +38,7 @@ def _leaf_params(prefix: str, node: Mapping, out: Dict[str, torch.Tensor]) -> No
         k = node["kernel"]
         if k.ndim == 2:                                   # Dense
             out[f"{prefix}.weight"] = k.T
-        elif name == "deconv":                            # ConvTranspose
+        elif prefix in transposed:                        # ConvTranspose
             out[f"{prefix}.weight"] = k[::-1, ::-1].transpose(2, 3, 0, 1)
         else:                                             # Conv
             out[f"{prefix}.weight"] = k.transpose(3, 2, 0, 1)
@@ -43,12 +46,12 @@ def _leaf_params(prefix: str, node: Mapping, out: Dict[str, torch.Tensor]) -> No
             out[f"{prefix}.bias"] = node["bias"]
 
 
-def _walk_params(prefix: str, node: Mapping, out: Dict) -> None:
+def _walk_params(prefix: str, node: Mapping, transposed: set, out: Dict) -> None:
     if any(not isinstance(v, Mapping) for v in node.values()):
-        _leaf_params(prefix, node, out)
+        _leaf_params(prefix, node, transposed, out)
     for key, child in node.items():
         if isinstance(child, Mapping):
-            _walk_params(f"{prefix}.{key}" if prefix else key, child, out)
+            _walk_params(f"{prefix}.{key}" if prefix else key, child, transposed, out)
 
 
 def _walk_stats(prefix: str, node: Mapping, out: Dict) -> None:
@@ -61,14 +64,14 @@ def _walk_stats(prefix: str, node: Mapping, out: Dict) -> None:
         _walk_stats(f"{prefix}.{key}" if prefix else key, child, out)
 
 
-def shapenet_state_dict_from_jax(params: Mapping, batch_stats: Mapping
-                                 ) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for the flax ``params`` and ``batch_stats`` trees.
-
-    Works for ShapeNetModel and for any of its submodules whose torch names
-    follow the flax scopes (ResNet50, VoxelBranch, the refine cells).
-    """
+def state_dict_from_jax(module: nn.Module, params: Mapping, batch_stats: Mapping
+                        ) -> Dict[str, torch.Tensor]:
+    """``module``'s state_dict for the flax ``params`` and ``batch_stats`` trees
+    of the flax module it ports (any whose torch names follow the flax scopes)."""
+    transposed = {name for name, m in module.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     out: Dict = {}
-    _walk_params("", params, out)
+    _walk_params("", params, transposed, out)
     _walk_stats("", batch_stats, out)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+

@@ -56,7 +56,7 @@ def _leaf(x) -> torch.Tensor:
 
 
 def _assert_param_grads(module: torch.nn.Module, jax_grads) -> None:
-    want = state_dict_from_flax(jax_grads)
+    want = state_dict_from_flax(module, jax_grads)
     got = dict(module.named_parameters())
     assert set(got) == set(want)
     for name, p in got.items():

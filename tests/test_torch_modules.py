@@ -13,7 +13,7 @@ from meshrcnn_tpu.ops.graph_conv import precompute_adjacency as jax_adjacency
 from meshrcnn_tpu_torch.models import layers as tl
 from meshrcnn_tpu_torch.models.resnet import ResNet50
 from meshrcnn_tpu_torch.ops.graph_conv import precompute_adjacency
-from meshrcnn_tpu_torch.utils.jax_params import shapenet_state_dict_from_jax
+from meshrcnn_tpu_torch.utils.jax_params import state_dict_from_jax
 from tests.torch_parity import load_flax, rel_err, t, to_numpy_tree
 
 TOL = 1e-4
@@ -57,7 +57,7 @@ def test_voxel_branch_matches_flax(logit_scale):
     if logit_scale > 1:
         assert (got.min() < 1e-5) and (got.max() > 1 - 1e-5)
     # without the spatial flip the deconv would disagree
-    sd = shapenet_state_dict_from_jax(params, {})
+    sd = state_dict_from_jax(tm, params, {})
     sd["deconv.weight"] = sd["deconv.weight"].flip(2, 3)
     tm.load_state_dict(sd)
     with torch.no_grad():

@@ -87,11 +87,11 @@ def _tiny_port_model() -> ShapeNetModel:
 
 
 def _grads_sd(grads) -> dict:
-    return {k: v.numpy() for k, v in state_dict_from_flax(grads).items()}
+    return {k: v.numpy() for k, v in state_dict_from_flax(_tiny_port_model(), grads).items()}
 
 
 def _state_sd(state) -> dict:
-    return {k: v.numpy() for k, v in state_dict_from_flax(state.params,
+    return {k: v.numpy() for k, v in state_dict_from_flax(_tiny_port_model(), state.params,
                                                           state.batch_stats).items()
             if not k.endswith("num_batches_tracked")}
 
@@ -192,7 +192,7 @@ def check_train_steps(recipe: str, pcs: int) -> None:
         for k in params:
             assert np.abs(states[i][k] - ref["states"][i][k]).max() <= 2 * LR * (i + 1) * 1.001, k
     # the frozen backbone did not move; the rest did
-    sd0 = state_dict_from_flax(ref["state0"].params)
+    sd0 = state_dict_from_flax(_tiny_port_model(), ref["state0"].params)
     assert all(np.array_equal(states[1][k], sd0[k].numpy()) for k in params
                if k.startswith("backbone."))
     assert not np.array_equal(states[1]["refine0.graphConv0.w0.weight"],
@@ -213,7 +213,8 @@ def test_bn_running_var_is_flax_biased_variance():
     variables = jax.jit(lambda a: jm.init(jax.random.PRNGKey(0), a, train=False))(x)
     _, upd = jax.jit(lambda v, a: jm.apply(v, a, train=True, mutable=["batch_stats"]))(
         variables, x)
-    want = state_dict_from_flax(variables["params"], upd["batch_stats"])
+    want = state_dict_from_flax(ResNet50(num_classes=13), variables["params"],
+                                upd["batch_stats"])
     tm = load_flax(ResNet50(num_classes=13), variables).train()
     with torch.no_grad():
         tm(t(x))

@@ -15,8 +15,8 @@ from meshrcnn_tpu_torch.utils.meters import AverageMeter
 from meshrcnn_tpu_torch.utils.metrics import f_score
 
 
-@pytest.mark.parametrize("name", ["CapacityConfig", "ShapeNetConfig", "TrainConfig",
-                                  "LossWeights"])
+@pytest.mark.parametrize("name", ["CapacityConfig", "ShapeNetConfig", "Pix3DConfig",
+                                  "TrainConfig", "LossWeights"])
 def test_config_defaults_match_jax(name):
     """Every field the port shares with the JAX package has its default; the
     port's own field is the normal estimator switch, which the JAX package
@@ -27,6 +27,22 @@ def test_config_defaults_match_jax(name):
     assert {k: v for k, v in ours.items() if k not in own} == {
         k: theirs[k] for k in ours if k not in own}
     assert {k: ours[k] for k in own} == own
+
+
+def test_pix3d_model_from_config():
+    """``Pix3DModel.from_config`` takes each Pix3DConfig field the JAX
+    package's ``Pix3DAPI`` passes to its model; keywords set the rest."""
+    from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
+    cfg = config.Pix3DConfig(num_classes=4, cubify_threshold=0.3, vertex_feature_dim=16,
+                             num_refinement_stages=2, detections_per_img=2,
+                             capacities=config.CapacityConfig(verts=64, faces=128, edges=256))
+    m = Pix3DModel.from_config(cfg, rpn_post_nms_top_n=32, backbone_dtype="float32")
+    assert (m.cubify_threshold, m.detections_per_img, m.num_refinement_stages) == (0.3, 2, 2)
+    assert (m.vert_capacity, m.face_capacity, m.edge_capacity) == (64, 128, 256)
+    assert m.backbone.roi_heads.num_classes == 4
+    assert m.refine1.graphConv0.w0.out_features == 16
+    assert not hasattr(m, "refine2") and not m.voxel_only
+    assert m.backbone.rpn_post_nms_top_n == 32
 
 
 @pytest.mark.parametrize("kw", [dict(kernel=3, padding=1), dict(kernel=7, padding=3, stride=2),

@@ -3,7 +3,7 @@
 Runs a JAX function and its counterpart in the PyTorch port on the same numpy
 inputs: it reproduces the JAX package's ``jax.random`` draws so they can be
 handed to the port, and carries flax parameters across with
-``shapenet_state_dict_from_jax``. Everything runs on the CPU.
+``state_dict_from_jax``. Everything runs on the CPU.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import jax
 import numpy as np
 import torch
 
-from meshrcnn_tpu_torch.utils.jax_params import shapenet_state_dict_from_jax
+from meshrcnn_tpu_torch.utils.jax_params import state_dict_from_jax
 
 
 def to_numpy_tree(tree):
@@ -19,16 +19,16 @@ def to_numpy_tree(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
 
-def state_dict_from_flax(params, batch_stats=None) -> dict:
-    """The port's state_dict of flax ``params`` / ``batch_stats`` trees (a
+def state_dict_from_flax(module: torch.nn.Module, params, batch_stats=None) -> dict:
+    """``module``'s state_dict of flax ``params`` / ``batch_stats`` trees (a
     gradient tree maps as a params tree: every layout change is linear)."""
-    return shapenet_state_dict_from_jax(to_numpy_tree(params),
-                                        to_numpy_tree(batch_stats or {}))
+    return state_dict_from_jax(module, to_numpy_tree(params),
+                               to_numpy_tree(batch_stats or {}))
 
 
 def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load flax ``{"params": ..., "batch_stats": ...}`` into ``module`` (strict), eval mode."""
-    sd = state_dict_from_flax(variables["params"], variables.get("batch_stats"))
+    sd = state_dict_from_flax(module, variables["params"], variables.get("batch_stats"))
     module.load_state_dict(sd, strict=True)
     return module.eval()
 
@@ -60,6 +60,18 @@ def eval_metric_draws(key, B: int, n: int, num_stages: int = 3) -> list:
     draws = train_step_draws(key, B, n, num_stages)
     k_p, k_g = jax.random.split(jax.random.fold_in(key, 7))
     return draws + sampler_draws(k_p, B, n) + sampler_draws(k_g, B, n)
+
+
+def pix3d_eval_metric_draws(key, B: int, D: int, n: int, ranked: bool = True,
+                            num_stages: int = 3) -> list:
+    """Every uniform of ``_pix3d_eval_metrics(key, ...)``, in the port's order:
+    ``eval_metric_draws`` over the B best-IoU slots, then with ``ranked`` the
+    B * D slots' pair from fold_in(key, 11)."""
+    draws = eval_metric_draws(key, B, n, num_stages)
+    if ranked:
+        k_p, k_g = jax.random.split(jax.random.fold_in(key, 11))
+        draws += sampler_draws(k_p, B * D, n) + sampler_draws(k_g, B * D, n)
+    return draws
 
 
 class Replay:
