@@ -9,8 +9,8 @@ Phases, each of which fails the run:
      (K1 and K3; K2 and K4 are B=1 launches of them, held to the batched
      launch's row): K1 bit-equal in distances and indices on ragged sizes
      around its 128- and 256-point tiles, on clouds full of ties, over five runs,
-     with NaN coordinates and at the Pix3D eval's [4, 10000, 3] (stage chamfers,
-     F1 pair) and [12, 10000, 3] (ranked slots); K3 equal in
+     with NaN coordinates and at the Pix3D eval's and train step's [4, 10000, 3]
+     (stage chamfers, F1 pair) and [12, 10000, 3] (ranked slots); K3 equal in
      values and indices for every subtile, for k from 1 to the largest, with
      fewer runs than k and over many spans; and greedy NMS (plain PyTorch, no
      kernel) equal in keep sets and order to a sequential numpy reference,
@@ -20,12 +20,13 @@ Phases, each of which fails the run:
      check that it went through its kernels: ShapeNet eval (K1 x 4 a batch),
      the train step (K1 x 3 a step, no K3), Pix3D eval with ranked AP (K1 x 5
      a batch; bfloat16 detection stack, held against its float32 FPN), the
-     reference kNN + PCA normal estimator in training and eval (K3 x 6 a step
-     and a batch), and the single-sample chamfer distance and kNN (K2, K4);
+     Pix3D train step (K1 x 3 a step, no K3), the reference kNN + PCA normal
+     estimator in training and eval (K3 x 6 a step and a batch), and the
+     single-sample chamfer distance and kNN (K2, K4);
   4. run small models on the card and on the CPU with the same weights: the
-     ShapeNet and Pix3D eval forwards, one ShapeNet train step, and the
-     backward of each module the step differentiates through (gradients
-     within 1e-4 of each tensor's scale in float32, 1e-9 in float64).
+     ShapeNet and Pix3D eval forwards, one ShapeNet and one Pix3D train step,
+     and the backward of each module and loss the steps differentiate through
+     (gradients within 1e-4 of each tensor's scale in float32, 1e-9 in float64).
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without that line when there is no CUDA device or any phase fails.
@@ -232,8 +233,8 @@ def _k1_cases(dev):
             and got[2][0, 300].item() == float("inf")
             and not bool(((got[1][0] == 300) & (got[0][0] < float("inf"))).any())):
         _fail("K1 NaN: a NaN point has a neighbour or is one")
-    # the Pix3D eval's shapes: B = 4 clouds of 10k points (stage chamfers, F1 pair)
-    # and B * D = 12 (ranked per-slot F1)
+    # the Pix3D shapes: B = 4 clouds of 10k points (the eval's and the train
+    # step's stage chamfers, the F1 pair) and B * D = 12 (ranked per-slot F1)
     for n in (4, 12):
         check(f"B={n} 10k", torch.rand((n, 10000, 3), generator=g) * 2 - 1,
               torch.rand((n, 10000, 3), generator=g) * 2 - 1, numpy_too=False)
@@ -582,9 +583,10 @@ def phase_pix3d_eval(kernels, batches: int = 4):
     kernels["chamfer_nn_bidir"]["launches"] += counts["chamfer_nn_bidir"]
 
 
-def _train(tag, model, config, loader, dev):
+def _train(tag, model, config, loader, dev, metrics=()):
     """``train_epoch`` over ``loader`` with every step's metrics checked:
-    finite, and grads_finite 1. Returns (meters, launch counts)."""
+    finite, grads_finite 1, and each name of ``metrics`` present. Returns the
+    launch counts."""
     import torch
 
     from meshrcnn_tpu_torch.harness import train_epoch
@@ -616,6 +618,8 @@ def _train(tag, model, config, loader, dev):
         print(f"[{tag}] step {i} {json.dumps(m)}")
         if not all(np.isfinite(v) for v in m.values()) or m["grads_finite"] != 1.0:
             _fail(f"{tag}: step {i} has a non-finite metric or gradient")
+        if not set(metrics) <= set(m):
+            _fail(f"{tag}: step {i} lacks metrics {sorted(set(metrics) - set(m))}")
     if state.step != steps:
         _fail(f"{tag}: {state.step} steps taken, want {steps}")
     return counts
@@ -636,6 +640,41 @@ def phase_train(kernels, steps: int = 5):
     if counts != want:
         _fail(f"train launched {counts}, want {want}")
     kernels["chamfer_nn_bidir"]["launches"] = counts["chamfer_nn_bidir"]
+
+
+PIX3D_TRAIN_METRICS = ("voxel_loss", "loss_objectness", "loss_rpn_box_reg", "loss_classifier",
+                       "loss_box_reg", "loss_mask", "backbone_loss", "chamfer_loss",
+                       "normal_loss", "edge_loss", "overflow", "loss", "grads_finite")
+
+
+def phase_pix3d_train(kernels, steps: int = 5):
+    """The Pix3D train step at full width (harness.pix3d_train_setup): bfloat16
+    detection stack at 224x224, B=4, RPN 1000 / 512, 512 sampled RoIs and 64
+    mask RoIs an image, the RPN, box, mask, voxel and mesh losses, SGD under
+    the Pix3D schedule with the backbone trained. Every metric finite in every
+    step, the voxel branch's and the FPN's parameters moved, K1 three times a
+    step (the stage chamfers at [4, 10000, 3]), K3 never (face normals)."""
+    import torch
+
+    from meshrcnn_tpu_torch.harness import pix3d_train_setup
+    dev = torch.device("cuda")
+    model, config, loader = pix3d_train_setup(steps, dev)
+    groups = {"voxel branch": "voxelBranch.", "FPN": "backbone.backbone."}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(tuple(groups.values()))}
+    counts = _train("pix3d train", model, config, loader, dev, PIX3D_TRAIN_METRICS)
+    params = dict(model.named_parameters())
+    for name, prefix in groups.items():
+        names = [n for n in before if n.startswith(prefix)]
+        moved = sum(not torch.equal(params[n].detach(), before[n]) for n in names)
+        print(f"[pix3d train] {name}: {moved} of {len(names)} parameter tensors moved")
+        if moved != len(names):
+            _fail(f"pix3d train: a parameter of the {name} did not move")
+    want = {"chamfer_nn_bidir": 3 * steps, "knn_topk_batched": 0,
+            "chamfer_sums_fused": 0, "knn_topk": 0}
+    if counts != want:
+        _fail(f"pix3d train launched {counts}, want {want}")
+    kernels["chamfer_nn_bidir"]["launches"] += counts["chamfer_nn_bidir"]
 
 
 def phase_estimator(kernels, steps: int = 3, batches: int = 2):
@@ -759,6 +798,17 @@ def phase_small_card_vs_cpu():
             _fail(f"{name} differs between the card and the CPU")
 
 
+def _tiny_pix3d_model(voxel_only: bool = False):
+    """tests/test_pix3d.py's TINY Pix3D model: RPN 64 / 32, 32 sampled RoIs and
+    8 mask RoIs an image, capacities 256/512/1024, float32 detection stack."""
+    from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
+    return Pix3DModel(num_classes=10, voxel_out_channels=8, vert_capacity=256,
+                      face_capacity=512, edge_capacity=1024, num_refinement_stages=3,
+                      rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32, roi_batch_size=32,
+                      mask_rois=8, detections_per_img=3, backbone_dtype="float32",
+                      voxel_only=voxel_only)
+
+
 def phase_small_pix3d_card_vs_cpu():
     """The tiny Pix3D model (tests/test_pix3d.py TINY: 64x64 images, RPN 64 /
     32, capacities 256/512/1024, float32) in eval on the card and on the CPU
@@ -770,14 +820,10 @@ def phase_small_pix3d_card_vs_cpu():
     threshold on one device, a decision the rounding may flip."""
     import torch
 
-    from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
     from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
 
     torch.manual_seed(4)
-    model = Pix3DModel(num_classes=10, voxel_out_channels=8, vert_capacity=256,
-                       face_capacity=512, edge_capacity=1024, num_refinement_stages=3,
-                       rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32, detections_per_img=3,
-                       backbone_dtype="float32")
+    model = _tiny_pix3d_model()
     images = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32))
     cpu = make_eval_step(model)(images)
     gpu = make_eval_step(model.to("cuda"))(images.to("cuda"))
@@ -885,6 +931,126 @@ def phase_small_train_card_vs_cpu(lr: float = 1e-4, noise: float = 4.0, floor: f
         _fail("updated parameters differ between the card and the CPU by more than 2 lr")
 
 
+def _tiny_pix3d_batch(B: int = 2, H: int = 64):
+    """tests/test_pix3d.py's ``tiny_batch``: one box [8, 8, 40, 40] and its
+    mask an image, an 8x24x24 voxel target, 8 ground-truth verts and 6 faces."""
+    import types
+    batch = _tiny_batch(B)
+    rng = np.random.RandomState(1)
+    masks = np.zeros((B, H, H), np.float32)
+    masks[:, 10:38, 10:38] = 1.0
+    return types.SimpleNamespace(
+        images=rng.rand(B, H, H, 3).astype(np.float32),
+        voxels=(rng.rand(B, 8, 24, 24) > 0.5).astype(np.float32),
+        gt_verts=batch.gt_verts, gt_faces=batch.gt_faces, gt_faces_mask=batch.gt_faces_mask,
+        labels=rng.randint(1, 10, (B,)).astype(np.int32),
+        boxes=np.tile(np.float32([[8, 8, 40, 40]]), (B, 1, 1)), masks=masks)
+
+
+def _nudged_images(images):
+    """1e-6 changes of the input: scaled by 1 + 1e-6, and pixel by pixel by
+    1 + 1e-6 u for uniforms u in [-1, 1] of two seeds. One change alone may
+    move a train-mode result 100 times less than another."""
+    yield images * np.float32(1.0 + 1e-6)
+    for seed in (0, 1):
+        u = np.random.RandomState(seed).uniform(-1.0, 1.0, images.shape).astype(np.float32)
+        yield (images * (1.0 + 1e-6 * u)).astype(np.float32)
+
+
+def phase_small_pix3d_train_card_vs_cpu(noise: float = 4.0, floor: float = 1e-4,
+                                        device: str = "cuda"):
+    """One train step of the tiny Pix3D model (the bench recipe's SGD, Pix3D
+    schedule and weights, 512-point clouds) on the card and on the CPU from
+    the same weights with the same uniforms, which replay one numpy stream.
+    The RPN's and the RoI heads' sampled indices are identical; losses within
+    4 / point_cloud_size relative (points on a neighbouring face, as in
+    ``phase_small_train_card_vs_cpu``); gradients (the detection stack and the
+    mesh branch apart) and BN statistics within ``noise`` times the CPU's own
+    spread, the largest distance to CPU steps on images changed by 1e-6
+    (``_nudged_images``) that sampled the CPU step's indices, plus ``floor`` of
+    scale; a nudged step that sampled other indices made another discrete
+    choice and is left out of the spread, and the phase fails if none is left.
+    In train mode this model amplifies rounding: BatchNorm over two images, the
+    RPN's proposals, matches at IoU 0.5 and cubify at a capacity of 256
+    vertices. The composed detection stack is held tightly in float64 by
+    ``phase_small_backward_card_vs_cpu`` ("pix3d detection stack")."""
+    import copy
+
+    import torch
+
+    from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
+    from meshrcnn_tpu_torch.models import roi_heads, rpn
+    from meshrcnn_tpu_torch.ops import matcher
+    from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
+                                                        make_train_step)
+
+    torch.manual_seed(5)
+    base = _tiny_pix3d_model()
+    pcs = 512
+    config = TrainConfig(optimizer="sgd", lr=0.02, weight_decay=1e-4, point_cloud_size=pcs,
+                         train_backbone=True, pix3d_schedule=True,
+                         loss_weights=LossWeights(voxel=3.0, chamfer=1.0, normal=0.1, edge=0.5))
+    host = _tiny_pix3d_batch()
+    sampled = []
+
+    def recording(*args, **kwargs):
+        out = matcher.balanced_sample(*args, **kwargs)
+        sampled.append(out[0].cpu())
+        return out
+    runs = {}
+    inputs = [("cpu", "cpu", host.images), ("card", device, host.images)] + [
+        (f"nudged {i}", "cpu", x) for i, x in enumerate(_nudged_images(host.images))]
+    rpn.balanced_sample = roi_heads.balanced_sample = recording
+    try:
+        for tag, dev, images in inputs:
+            model = copy.deepcopy(base).to(dev)
+            stream = np.random.RandomState(0)
+            step = make_train_step(config, lambda shape: torch.from_numpy(
+                stream.rand(*shape).astype(np.float32)))
+            b = Batch.from_host(host, dev)
+            b.images = torch.from_numpy(images).to(dev)
+            sampled.clear()
+            m = step(create_train_state(model, config), b)
+            runs[tag] = ({k: v.cpu() for k, v in m.items()},
+                         {n: p.grad.cpu() for n, p in model.named_parameters()
+                          if p.grad is not None},
+                         {k: v.cpu() for k, v in model.state_dict().items() if "running_" in k},
+                         list(sampled))
+    finally:
+        rpn.balanced_sample = roi_heads.balanced_sample = matcher.balanced_sample
+    (m_c, g_c, s_c, i_c), (m_g, g_g, s_g, i_g) = runs["cpu"], runs["card"]
+    def same_indices(run):
+        return len(run[3]) == len(i_c) == 2 and all(torch.equal(a, b) for a, b in zip(run[3], i_c))
+    if not same_indices(runs["card"]):
+        _fail("the sampled RPN or RoI indices differ between the card and the CPU")
+    tags = [t for t in runs if t.startswith("nudged")]
+    nudged = [runs[t] for t in tags if same_indices(runs[t])]
+    print(f"[small pix3d train] sampled indices identical: RPN {tuple(i_c[0].shape)}, RoI "
+          f"{tuple(i_c[1].shape)}; {len(nudged)} of {len(tags)} nudged CPU steps sampled "
+          f"the same indices and set the spread")
+    if not nudged:
+        _fail("no nudged CPU step sampled the CPU step's indices: no spread to hold the card to")
+    for k in m_c:
+        d = abs(m_g[k] - m_c[k]).item()
+        spread = max(abs(n[0][k] - m_c[k]).item() for n in nudged)
+        print(f"[small pix3d train] {k}: card {m_g[k].item():.6f} cpu {m_c[k].item():.6f} "
+              f"(cpu spread {spread:.3e})")
+        if not (np.isfinite(m_g[k].item()) and d <= 4.0 / pcs * max(abs(m_c[k].item()), 1.0)):
+            _fail(f"Pix3D train metric {k} differs between the card and the CPU")
+    groups = {"detection stack grads": (1, [k for k in g_c if k.startswith("backbone.")]),
+              "mesh branch grads": (1, [k for k in g_c if not k.startswith("backbone.")]),
+              "BN statistics": (2, list(s_c))}
+    for name, (j, keys) in groups.items():
+        a, b = runs["card"][j], runs["cpu"][j]
+        d = _distance(a, b, keys)
+        spread = max(_distance(n[j], b, keys) for n in nudged)
+        scale = _distance(b, {k: torch.zeros_like(b[k]) for k in keys}, keys)
+        print(f"[small pix3d train] {name}: card-cpu {d:.3e}, cpu spread {spread:.3e}, "
+              f"scale {scale:.3e}")
+        if not d <= noise * spread + floor * max(scale, 1.0):
+            _fail(f"Pix3D {name} differ between the card and the CPU")
+
+
 def _backward_pieces():
     """name -> (module or None, float inputs, int inputs, scalar of (module,
     floats, ints), dtype): every module the train step differentiates
@@ -960,12 +1126,133 @@ def _backward_pieces():
     }
 
 
+def _pix3d_backward_pieces():
+    """``_backward_pieces`` of the Pix3D train step's detection losses, in
+    float64: the RPN loss over the anchors of a 224x224 image, the RoI heads'
+    training branch with its box losses (sampling, 12x12 pool, box head,
+    predictor), the mask loss (14x14 pool, mask head, GT mask crop),
+    ``multiscale_roi_align`` into the level table, ``filter_roi_input``, and
+    the detection stack composed: the tiny Pix3D model without its mesh branch
+    in train mode (FPN with BatchNorm over the batch, RPN, proposals, RoI
+    heads, the best-IoU RoI feature and the voxel head) on the tiny train
+    batch, its running statistics held too. Channels and heads at the bench
+    recipe's widths, B=2; every sampler draws the same fixed uniforms on both
+    devices."""
+    import torch
+
+    from meshrcnn_tpu_torch.models.pix3d import filter_roi_input
+    from meshrcnn_tpu_torch.models.roi_heads import Detections, RoIHeads
+    from meshrcnn_tpu_torch.models.rpn import generate_anchors, rpn_loss
+    from meshrcnn_tpu_torch.ops import roi_align
+
+    rng = np.random.RandomState(6)
+    B = 2
+
+    def randn(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def boxes(n, lo, hi, wmin, wmax):
+        xy = rng.uniform(lo, hi, (B, n, 2))
+        return np.concatenate([xy, xy + rng.uniform(wmin, wmax, (B, n, 2))], -1).astype(np.float32)
+
+    def replay(shapes):
+        draws = [rng.rand(*shape).astype(np.float32) for shape in shapes]
+
+        def make(device):
+            it = iter(draws)
+            return lambda shape: torch.from_numpy(next(it)).to(device)
+        return make
+
+    # the RPN loss: 12495 anchors of P2..P6 at 224x224, one GT box an image
+    shapes = [(224 // s, 224 // s) for s in (4, 8, 16, 32)] + [(4, 4)]
+    n_anchors = [3 * h * w for h, w in shapes]
+    rpn_draws = replay([(B, sum(n_anchors))] * 2)
+    gt = np.float32([[[40, 50, 190, 180]], [[30, 20, 120, 150]]])
+
+    def rpn_fn(m, f, i):
+        dev = f[0].device
+        obj, box = rpn_loss(rpn_draws(dev), f[:5], f[5:10],
+                            generate_anchors(shapes, (224, 224), dev), f[10])
+        return 0.7 * obj + 1.3 * box
+
+    # the RoI heads at 64x64: 256-channel FPN, 40 proposals around the GT
+    size, R = 64, 40
+    maps = [randn(B, 256, size // s, size // s) for s in (4, 8, 16, 32, 64)]
+    gt_small = np.float32([[[8, 10, 40, 44]], [[20, 16, 60, 50]]])
+    props = np.clip(gt_small + rng.uniform(-10, 10, (B, R, 4)), -20, 90).astype(np.float32)
+    props[:, ::4] = boxes(R // 4, -10, 50, 8, 70)
+    valid = np.ones((B, R), bool)
+    valid[:, -3:] = False
+    labels = np.int64([3, 7])
+    heads = RoIHeads(num_classes=10, batch_size_per_image=64, mask_rois=8).eval()
+    box_draws = replay([(B, R + 1)] * 2)
+
+    def box_fn(m, f, i):
+        _, losses, _ = m(f[:5], f[5], i[0], (size, size), train=True, gt_boxes=f[6],
+                         gt_labels=i[1], uniform=box_draws(f[0].device))
+        return 0.9 * losses["loss_classifier"] + 1.1 * losses["loss_box_reg"]
+
+    masks = np.zeros((B, size, size), np.float32)
+    masks[0, 12:40, 10:36] = masks[1, 18:48, 24:58] = 1.0
+    pos = rng.rand(B, 32) < 0.3
+    mask_draws = replay([(B, 32)])
+
+    def mask_fn(m, f, i):
+        return m._mask_loss(mask_draws(f[0].device), roi_align.flatten_levels(f[:4]), f[4],
+                            i[0], i[1], i[2], (size, size))
+
+    pool_cot = randn(B, 60, 12, 12, 256)
+
+    def align_fn(m, f, i):
+        out = roi_align.multiscale_roi_align(roi_align.flatten_levels(f[:4]), f[4], (224, 224),
+                                             12, 1)
+        return (out * torch.from_numpy(pool_cot).to(out.device)).sum()
+
+    det_valid = np.array([[True, False, True], [False, False, False]])
+    roi_cot = randn(B, 12, 12, 256)
+
+    def filter_fn(m, f, i):
+        det = Detections(boxes=f[1], labels=torch.ones_like(i[0], dtype=torch.long),
+                         scores=torch.ones_like(f[1][..., 0]), valid=i[0], roi_features=f[2])
+        out = filter_roi_input(f[0], det)
+        return (out * torch.from_numpy(roi_cot).to(out.device)).sum()
+
+    torch.manual_seed(7)
+    stack = _tiny_pix3d_model(voxel_only=True).train()
+    batch = _tiny_pix3d_batch()
+    voxel_cot = randn(*batch.voxels.shape)
+
+    def stack_fn(m, f, i):
+        draws = np.random.RandomState(8)
+        out = m(f[0], f[1], i[0], i[1], lambda shape: torch.from_numpy(
+            draws.rand(*shape).astype(np.float32)).to(f[0].device))
+        losses = [out.backbone_losses[k] for k in sorted(out.backbone_losses)]
+        return (sum((1.0 + 0.1 * n) * x for n, x in enumerate(losses))
+                + (out.voxels * torch.from_numpy(voxel_cot).to(out.voxels.device)).sum())
+
+    f64 = torch.float64
+    return {
+        "rpn loss": (None, [randn(B, n, scale=2.0) for n in n_anchors]
+                     + [randn(B, n, 4, scale=0.5) for n in n_anchors] + [gt], [], rpn_fn, f64),
+        "roi heads box losses": (heads, maps + [props, gt_small], [valid, labels], box_fn, f64),
+        "mask loss": (heads, maps[:4] + [props[:, :32].copy()], [pos, labels, masks], mask_fn,
+                      f64),
+        "multiscale roi align": (None, [randn(B, 256, 224 // s, 224 // s) for s in (4, 8, 16, 32)]
+                                 + [boxes(60, -20, 200, 4, 230)], [], align_fn, f64),
+        "filter roi input": (None, [gt, boxes(3, 20, 120, 30, 100), randn(B, 3, 12, 12, 256)],
+                             [det_valid], filter_fn, f64),
+        "pix3d detection stack": (stack, [batch.images, batch.boxes],
+                                  [batch.labels.astype(np.int64), batch.masks > 0.5], stack_fn,
+                                  f64),
+    }
+
+
 def phase_small_backward_card_vs_cpu(device: str = "cuda"):
     """The train step's backward piece by piece (``_backward_pieces``), on the
     card and on the CPU from the same weights and inputs: every parameter's
-    and input's gradient within 1e-4 of its scale (max |card - cpu| /
-    max(max |cpu|, 1)) in float32, 1e-9 in float64; only summation order
-    differs. The modules run in float64 because their ReLUs are kinks: in
+    and input's gradient, and every running statistic a train-mode module
+    updated, within 1e-4 of its scale (max |card - cpu| / max(max |cpu|, 1))
+    in float32, 1e-9 in float64; only summation order differs. The modules run in float64 because their ReLUs are kinks: in
     float32 a pre-activation within rounding of 0 takes the other branch on
     the other device and moves a weight's gradient by ~1/(B*V) of its scale
     (5.6e-4 in a refine cell at 512 vertices, on an H100). The whole step is
@@ -974,7 +1261,8 @@ def phase_small_backward_card_vs_cpu(device: str = "cuda"):
 
     import torch
     tols = {torch.float32: 1e-4, torch.float64: 1e-9}
-    for name, (module, floats, ints, fn, dtype) in _backward_pieces().items():
+    pieces = {**_backward_pieces(), **_pix3d_backward_pieces()}
+    for name, (module, floats, ints, fn, dtype) in pieces.items():
         grads = {}
         for dev in ("cpu", device):
             m = copy.deepcopy(module).to(dev, dtype) if module is not None else None
@@ -984,16 +1272,20 @@ def phase_small_backward_card_vs_cpu(device: str = "cuda"):
             named.update({f"input{k}": x for k, x in enumerate(f)})
             grads[dev] = {k: p.grad.cpu().double() for k, p in named.items()
                           if p.grad is not None}
+            if m is not None and m.training:
+                grads[dev].update({f"buffer {k}": b.cpu().double() for k, b in m.named_buffers()
+                                   if b.is_floating_point()})
         cpu, card = grads["cpu"], grads[device]
         if set(cpu) != set(card) or not cpu:
             _fail(f"{name}: the card and the CPU differentiate different tensors")
         errs = {k: ((card[k] - cpu[k]).abs().max() / max(cpu[k].abs().max().item(), 1.0)).item()
                 for k in cpu}
         worst = max(errs, key=errs.get)
-        print(f"[small backward] {name} ({dtype}): {len(errs)} gradients, worst {worst} "
-              f"{errs[worst]:.3e} of its scale")
+        stats = sum(k.startswith("buffer ") for k in errs)
+        print(f"[small backward] {name} ({dtype}): {len(errs) - stats} gradients, {stats} "
+              f"running statistics, worst {worst} {errs[worst]:.3e} of its scale")
         if not errs[worst] < tols[dtype]:
-            _fail(f"{name}: gradient {worst} differs between the card and the CPU")
+            _fail(f"{name}: {worst} differs between the card and the CPU")
 
 
 def main() -> None:
@@ -1011,11 +1303,13 @@ def main() -> None:
     phase_slice()
     phase_train(kernels)
     phase_pix3d_eval(kernels)
+    phase_pix3d_train(kernels)
     phase_estimator(kernels)
     phase_single(kernels)
     phase_small_card_vs_cpu()
     phase_small_pix3d_card_vs_cpu()
     phase_small_train_card_vs_cpu()
+    phase_small_pix3d_train_card_vs_cpu()
     phase_small_backward_card_vs_cpu()
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -2,7 +2,8 @@
 (counterpart of meshrcnn_tpu/harness.py; reference: utils/train_utils.py:174-250,
 utils/eval_utils.py:93-194).
 
-``train_epoch`` runs one ShapeNet train step per batch. ``validate`` runs, per
+``train_epoch`` runs one train step per batch, ShapeNet or Pix3D (the
+Pix3D step sends its three stage chamfers through K1). ``validate`` runs, per
 batch, the ShapeNet eval forward, then ``shapenet_eval_metrics``: voxel BCE and
 IoU, class predictions, per-stage chamfer / normal / edge losses, and
 point-cloud F1@tau. Each eval batch sends four cloud pairs through K1: three
@@ -65,16 +66,16 @@ class SyntheticPix3DBatch:
         self.masks[:, 40:180, 50:190] = 1.0
 
 
-def pix3d_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
+def pix3d_train_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
                       **overrides):
-    """(model in eval mode, config, numpy batches) of the full-width Pix3D recipe
+    """(model in train mode, config, numpy batches) of the full-width Pix3D recipe
     (bench.py:165-203): Mask R-CNN with a bfloat16 detection stack at 224x224,
-    10 classes, 3 detections an image, RPN 1000 / 512, 24^3 voxels,
-    capacities 4096/8192/16384, 10k-point clouds, B=4, random weights and data
-    from ``seed``. The config is the recipe's (SGD, Pix3D schedule, weights
-    voxel 3 / chamfer 1 / normal 0.1 / edge 0.5); ``validate_pix3d`` reads its
-    point_cloud_size, normal_k, distance_tile and face_normals. ``overrides``
-    replace fields of the config."""
+    10 classes, 3 detections an image, RPN 1000 / 512, 512 sampled RoIs and 64
+    mask RoIs an image, 24^3 voxels, capacities 4096/8192/16384, 10k-point
+    clouds, B=4, random weights and data from ``seed``; SGD at lr 0.02 under
+    the Pix3D schedule (0.002 at step 0), weight decay 1e-4, the backbone
+    trained, weights voxel 3 / chamfer 1 / normal 0.1 / edge 0.5.
+    ``overrides`` replace fields of the config."""
     torch.manual_seed(seed)
     model = Pix3DModel.from_config(Pix3DConfig(
         capacities=CapacityConfig(verts=4096, faces=8192, edges=16384))).to(device)
@@ -85,7 +86,16 @@ def pix3d_bench_setup(batches: int, device: torch.device | str = "cuda", seed: i
                                                   edge=0.5))
     config = dataclasses.replace(config, **overrides)
     rng = np.random.RandomState(seed)
-    return model.eval(), config, [SyntheticPix3DBatch(rng) for _ in range(batches)]
+    return model.train(), config, [SyntheticPix3DBatch(rng) for _ in range(batches)]
+
+
+def pix3d_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
+                      **overrides):
+    """``pix3d_train_setup``'s recipe with the model in eval mode, for
+    ``validate_pix3d``, which reads the config's point_cloud_size, normal_k,
+    distance_tile and face_normals."""
+    model, config, data = pix3d_train_setup(batches, device, seed, **overrides)
+    return model.eval(), config, data
 
 
 def _bench_model(device) -> ShapeNetModel:
@@ -151,7 +161,8 @@ def train_epoch(epoch: int, step_fn: Callable[[TrainState, Batch], Dict[str, tor
                 device: torch.device | str = "cuda", print_freq: int = 10):
     """One training epoch over numpy batches, one train step each (counterpart
     of ``harness.train_epoch`` without its multi-step dispatch; reference:
-    train_utils.py:174-250). Every metric of the step goes to a meter of its
+    train_utils.py:174-250). A Pix3D batch carries ``boxes`` and ``masks``,
+    which ``Batch.from_host`` copies. Every metric of the step goes to a meter of its
     name; the first step of a run is booked as ``warmup_time``. Returns
     (state, meters) after ``epoch_end`` on every meter."""
     end = time.time()

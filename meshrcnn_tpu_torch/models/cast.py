@@ -23,6 +23,12 @@ def compute_dtype(name: str) -> Optional[torch.dtype]:
     return None if name == "float32" else getattr(torch, name)
 
 
+def float32_out(x: torch.Tensor) -> torch.Tensor:
+    """flax's cast back to float32 at a head's output: a bfloat16 result
+    becomes float32; float32 and float64 (the backward checks) stay as they are."""
+    return x.float() if x.dtype.itemsize < 4 else x
+
+
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
     return None if t is None else t.to(dtype)
 

@@ -19,11 +19,13 @@ from meshrcnn_tpu_torch.models.resnet import ResNetBody
 def upsample_nearest(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     """Nearest upsample of NCHW x to (th, tw) with source rows (arange(th) * H) // th,
     in integers: ``F.interpolate(mode="nearest")`` computes its source index in
-    floating point and may pick another row at sizes that do not divide."""
+    floating point and may pick another row at sizes that do not divide. Rows
+    and columns are taken by ``index_select``, whose backward is an
+    ``index_add_``; advanced indexing would take PyTorch's sort-based backward."""
     H, W = x.shape[2], x.shape[3]
     rows = torch.div(torch.arange(th, device=x.device) * H, th, rounding_mode="floor")
     cols = torch.div(torch.arange(tw, device=x.device) * W, tw, rounding_mode="floor")
-    return x[:, :, rows][:, :, :, cols]
+    return x.index_select(2, rows).index_select(3, cols)
 
 
 class ResNetFPN(ResNetBody):

@@ -1,11 +1,13 @@
-"""Region proposal network: anchors, the RPN head and proposal selection
-(counterpart of meshrcnn_tpu/models/rpn.py; reference: pix3d_model.py:147).
+"""Region proposal network: anchors, the RPN head, proposal selection and
+the RPN loss (counterpart of meshrcnn_tpu/models/rpn.py; reference:
+pix3d_model.py:147).
 
 Every step has a fixed shape: per-level top-k objectness, greedy NMS of all
 levels in one batched call (``ops/nms.py``), and a final top-k to a fixed
-proposal count. Top-k is a stable descending sort cut to k, so equal scores
-keep the lower index first, as ``jax.lax.top_k`` does; ``torch.topk``
-promises no order among ties.
+proposal count. Top-k is ``ops/matcher.stable_topk``, a stable descending
+sort cut to k, so equal scores keep the lower index first, as
+``jax.lax.top_k`` does. The loss matches every anchor to the GT boxes and
+samples a fixed number of them (``ops/matcher.py``).
 """
 from __future__ import annotations
 
@@ -15,22 +17,26 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from meshrcnn_tpu_torch.models.cast import Conv2d
-from meshrcnn_tpu_torch.ops.boxes import clip_boxes_to_image, decode_boxes, small_box_mask
+from meshrcnn_tpu_torch.models.cast import Conv2d, float32_out
+from meshrcnn_tpu_torch.ops.boxes import (box_iou, clip_boxes_to_image, decode_boxes,
+                                          encode_boxes, small_box_mask)
+from meshrcnn_tpu_torch.ops.gather import batched_gather_rows
+from meshrcnn_tpu_torch.ops.matcher import (BELOW_LOW, balanced_sample, match_boxes,
+                                            sigmoid_bce, smooth_l1, stable_topk)
 from meshrcnn_tpu_torch.ops.nms import nms_mask
+from meshrcnn_tpu_torch.ops.sampling import Uniform
 
 ANCHOR_SIZES = (32, 64, 128, 256, 512)          # one per P2..P6 level
 ASPECT_RATIOS = (0.5, 1.0, 2.0)
-
-
-def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k largest of the last axis, lower index first among equal values."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+# The RPN loss's sampling recipe (torchvision's RPN defaults).
+RPN_BATCH_PER_IMAGE = 256
+RPN_POSITIVE_FRACTION = 0.5
+RPN_FG_IOU = 0.7
+RPN_BG_IOU = 0.3
 
 
 def generate_anchors(feature_shapes: Sequence[tuple[int, int]], image_size: tuple[int, int],
-                     device: torch.device | str = "cpu") -> List[torch.Tensor]:
+                     device: torch.device | str) -> List[torch.Tensor]:
     """Per-level anchors [H*W*A, 4] xyxy centred on the feature cells, in (h, w, a) order."""
     H, W = image_size
     out = []
@@ -66,8 +72,8 @@ class RPNHead(nn.Module):
         for f in features:
             t = F.relu(self.conv(f))
             B = t.shape[0]
-            logits.append(self.cls_logits(t).permute(0, 2, 3, 1).reshape(B, -1).float())
-            deltas.append(self.bbox_pred(t).permute(0, 2, 3, 1).reshape(B, -1, 4).float())
+            logits.append(float32_out(self.cls_logits(t).permute(0, 2, 3, 1).reshape(B, -1)))
+            deltas.append(float32_out(self.bbox_pred(t).permute(0, 2, 3, 1).reshape(B, -1, 4)))
         return logits, deltas
 
 
@@ -113,3 +119,31 @@ def select_proposals(logits: Sequence[torch.Tensor], deltas: Sequence[torch.Tens
     top_s, top_i = stable_topk(scores, min(post_nms_top_n, boxes.shape[1]))
     return (_take_rows(boxes, top_i), top_s,
             torch.gather(valid, 1, top_i) & (top_s > float("-inf")))
+
+
+def rpn_loss(uniform: Uniform, logits: Sequence[torch.Tensor], deltas: Sequence[torch.Tensor],
+             anchors: Sequence[torch.Tensor], gt_boxes: torch.Tensor):
+    """Objectness BCE and box smooth-L1 of the sampled anchors (torchvision's
+    RPN loss): each image's anchors of all levels are matched to its GT boxes
+    [B, G, 4] at ``RPN_FG_IOU`` / ``RPN_BG_IOU`` with low-quality matches, and
+    ``balanced_sample`` takes ``RPN_BATCH_PER_IMAGE`` of them (two uniforms
+    [B, N] from ``uniform``, N anchors). Both losses are per image over the
+    sampled count, then averaged over images. Returns (loss_objectness,
+    loss_rpn_box_reg)."""
+    lg = torch.cat(list(logits), 1)                                  # [B, N]
+    dl = torch.cat(list(deltas), 1)                                  # [B, N, 4]
+    anc = torch.cat(list(anchors), 0)                                # [N, 4]
+    G = gt_boxes.shape[1]
+    gt_valid = torch.ones(G, dtype=torch.bool, device=lg.device)
+    matches = match_boxes(box_iou(anc, gt_boxes), gt_valid, RPN_FG_IOU, RPN_BG_IOU,
+                          allow_low_quality=True)                    # [B, N]
+    positive = matches >= 0
+    idx, is_pos, valid = balanced_sample(uniform, positive, matches == BELOW_LOW,
+                                         RPN_BATCH_PER_IMAGE, RPN_POSITIVE_FRACTION)
+    sampled_gt = batched_gather_rows(gt_boxes, torch.gather(matches, 1, idx).clamp(0, G - 1))
+    targets = encode_boxes(sampled_gt, anc[idx])
+    sv = valid.float()
+    bce = sigmoid_bce(torch.gather(lg, 1, idx), torch.gather(positive.float(), 1, idx)) * sv
+    n_sampled = sv.sum(1).clamp(min=1.0)
+    box = smooth_l1(batched_gather_rows(dl, idx), targets).sum(-1) * is_pos.float()
+    return (bce.sum(1) / n_sampled).mean(), (box.sum(1) / n_sampled).mean()

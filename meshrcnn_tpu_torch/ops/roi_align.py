@@ -33,6 +33,9 @@ def _corner_gather(flat: torch.Tensor, base: torch.Tensor, ys: torch.Tensor,
     base [B, R] is each RoI's first row, ys / xs [B, R, P] its sample
     coordinates, hi_y / hi_x the largest coordinate of its map, ``row`` the
     row stride of a map line (an int, or [B, R, 1, 1] per RoI). Returns [B, R, output_size, output_size, C].
+    A NaN coordinate reads row 0 of its map with NaN weights: the integer
+    corners are clamped into the map after the conversion, so no gather
+    leaves it.
     """
     ys = torch.minimum(ys.clamp(min=0.0), hi_y)
     xs = torch.minimum(xs.clamp(min=0.0), hi_x)
@@ -40,10 +43,11 @@ def _corner_gather(flat: torch.Tensor, base: torch.Tensor, ys: torch.Tensor,
     x0 = torch.floor(xs)
     fy = ys - y0
     fx = xs - x0
-    y0i = y0.long()
-    x0i = x0.long()
-    y1i = torch.minimum(y0i + 1, hi_y.long())
-    x1i = torch.minimum(x0i + 1, hi_x.long())
+    hi_yi, hi_xi = hi_y.long(), hi_x.long()
+    y0i = torch.minimum(y0.long().clamp(min=0), hi_yi)
+    x0i = torch.minimum(x0.long().clamp(min=0), hi_xi)
+    y1i = torch.minimum(y0i + 1, hi_yi)
+    x1i = torch.minimum(x0i + 1, hi_xi)
     B, R, P = ys.shape
     C = flat.shape[-1]
 
@@ -84,12 +88,13 @@ def fpn_levels(boxes: torch.Tensor, num_levels: int, canonical_scale: int = 224,
     to P2..P(1+num_levels) (FPN paper eqn. 1). log2 is log(x) / log(2) in
     float32, as ``jnp.log2`` computes it, so boxes on a level boundary land
     where the JAX package puts them. Both divisions take a tensor divisor: a
-    Python number would make the card multiply by its reciprocal instead."""
+    Python number would make the card multiply by its reciprocal instead. A
+    box with a NaN coordinate (a step the train loop will skip) gets P2."""
     areas = ((boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])).clamp(min=1e-6)
     const = torch.tensor([float(canonical_scale), 2.0], device=boxes.device)
     log2 = torch.log(torch.sqrt(areas) / const[0]) / torch.log(const[1])
     k = torch.floor(canonical_level + log2)
-    return k.clamp(2, 2 + num_levels - 1).long() - 2
+    return k.clamp(2, 2 + num_levels - 1).nan_to_num(2.0).long() - 2
 
 
 class FeatureLevels(NamedTuple):
@@ -103,12 +108,21 @@ class FeatureLevels(NamedTuple):
 
 def flatten_levels(feature_maps: Sequence[torch.Tensor]) -> FeatureLevels:
     """NCHW maps [B, C, H_l, W_l], highest resolution first -> FeatureLevels.
-    Built once a forward and read by every pool of it."""
+    Built once a forward and read by every pool of it.
+
+    A bfloat16 table that needs a gradient is cast to float32: the gathers'
+    backward is an ``index_add_`` into the table, and the hundreds of RoIs of
+    an image overlap on the same rows, so bfloat16 sums would lose most of the
+    gradient's digits. A bfloat16 value is exact in float32, so the forward is
+    unchanged; the gradient is rounded to bfloat16 once, at the cast."""
     rows = [f.permute(0, 2, 3, 1).reshape(-1, f.shape[1]) for f in feature_maps]
     offsets = [0]
     for r in rows[:-1]:
         offsets.append(offsets[-1] + r.shape[0])
-    return FeatureLevels(torch.cat(rows), tuple(offsets),
+    flat = torch.cat(rows)
+    if flat.requires_grad and flat.dtype.itemsize < 4:
+        flat = flat.float()
+    return FeatureLevels(flat, tuple(offsets),
                          tuple(f.shape[2] for f in feature_maps),
                          tuple(f.shape[3] for f in feature_maps))
 

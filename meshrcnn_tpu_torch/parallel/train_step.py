@@ -1,5 +1,6 @@
-"""Train and eval steps (counterpart of meshrcnn_tpu/parallel/train_step.py,
-single device; data parallelism is a later slice).
+"""Train and eval steps of the ShapeNet and Pix3D models (counterpart of
+meshrcnn_tpu/parallel/train_step.py, single device; data parallelism is a
+later slice).
 
 The JAX step is a pure function of (params, batch_stats, opt_state); here the
 model and optimizer are updated in place, and the mapping is:
@@ -24,6 +25,7 @@ from torch.nn import functional as F
 from torch.profiler import record_function
 
 from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
+from meshrcnn_tpu_torch.models.pix3d import Pix3DModel, Pix3DOutput
 from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel, ShapeNetOutput
 from meshrcnn_tpu_torch.ops.losses import batched_mesh_loss, voxel_loss
 from meshrcnn_tpu_torch.ops.sampling import Uniform
@@ -31,24 +33,28 @@ from meshrcnn_tpu_torch.ops.sampling import Uniform
 
 @dataclasses.dataclass
 class Batch:
-    """One training batch on the device (the ShapeNet fields of the JAX ``Batch``)."""
+    """One training batch on the device (the fields of the JAX ``Batch`` the
+    port reads; ``boxes`` and ``masks`` are Pix3D's, None for ShapeNet)."""
     images: torch.Tensor          # [B, H, W, 3]
     voxels: torch.Tensor          # [B, Z, Y, X] {0,1}
     gt_verts: torch.Tensor        # [B, Vg, 3]
     gt_faces: torch.Tensor        # [B, Fg, 3]
     gt_faces_mask: torch.Tensor   # [B, Fg]
-    labels: torch.Tensor          # [B]
+    labels: torch.Tensor          # [B] (Pix3D: 1-based classes)
+    boxes: Optional[torch.Tensor] = None   # [B, 1, 4] xyxy GT box
+    masks: Optional[torch.Tensor] = None   # [B, H, W] binary GT mask
 
     @classmethod
     def from_host(cls, batch, device) -> "Batch":
-        """Copy the fields of any batch object holding numpy arrays to ``device``."""
-        return cls(**{f.name: torch.from_numpy(np.array(getattr(batch, f.name))).to(device)
-                      for f in dataclasses.fields(cls)})
+        """Copy the fields that a batch object of numpy arrays has to ``device``."""
+        fields = {f.name: getattr(batch, f.name, None) for f in dataclasses.fields(cls)}
+        return cls(**{k: torch.from_numpy(np.array(v)).to(device)
+                      for k, v in fields.items() if v is not None})
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: ShapeNetModel
+    model: ShapeNetModel | Pix3DModel
     optimizer: torch.optim.Optimizer
     scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
     step: int = 0
@@ -85,7 +91,7 @@ def make_optimizer(config: TrainConfig, model: torch.nn.Module):
     return opt, sched
 
 
-def create_train_state(model: ShapeNetModel, config: TrainConfig) -> TrainState:
+def create_train_state(model: ShapeNetModel | Pix3DModel, config: TrainConfig) -> TrainState:
     opt, sched = make_optimizer(config, model)
     return TrainState(model=model, optimizer=opt, scheduler=sched)
 
@@ -125,6 +131,14 @@ def shapenet_loss_fn(model: ShapeNetModel, config: TrainConfig, batch: Batch,
         b_loss = F.cross_entropy(out.logits, batch.labels.long())
         metrics["backbone_loss"] = b_loss
         total = total + w.backbone * b_loss
+    return _mesh_terms(model, config, out, batch, uniform, total, metrics)
+
+
+def _mesh_terms(model, config: TrainConfig, out, batch: Batch, uniform: Uniform, total,
+                metrics: dict):
+    """Add the weighted mesh losses and the overflow count, unless the model is
+    voxel-only; returns (total, detached metrics) with ``loss`` the total."""
+    w = config.loss_weights
     if not model.voxel_only:
         with record_function("losses/mesh"):
             chamfer, normal, edge = batched_mesh_loss(
@@ -139,6 +153,26 @@ def shapenet_loss_fn(model: ShapeNetModel, config: TrainConfig, batch: Batch,
         metrics["overflow"] = (ovf.verts + ovf.faces + ovf.edges).sum().float()
     metrics["loss"] = total
     return total, {k: v.detach() for k, v in metrics.items()}
+
+
+def pix3d_loss_fn(model: Pix3DModel, config: TrainConfig, batch: Batch, uniform: Uniform):
+    """Forward in train mode + weighted loss sum -> (total, metrics) (reference:
+    utils/train_utils.py:208-225). Each Mask R-CNN loss is a metric of its own
+    name; their sum is ``backbone_loss``, weighted by ``backbone``. The
+    samplers draw first, then the mesh losses (``Pix3DModel``'s order)."""
+    out: Pix3DOutput = model(batch.images, batch.boxes, batch.labels, batch.masks, uniform)
+    w = config.loss_weights
+    with record_function("losses/voxel"):
+        v_loss = voxel_loss(out.voxels, batch.voxels)
+    metrics = {"voxel_loss": v_loss}
+    total = w.voxel * v_loss
+    backbone_total = 0.0
+    for name, val in out.backbone_losses.items():
+        metrics[name] = val
+        backbone_total = backbone_total + val
+    metrics["backbone_loss"] = backbone_total
+    total = total + w.backbone * backbone_total
+    return _mesh_terms(model, config, out, batch, uniform, total, metrics)
 
 
 def _all_finite(total: torch.Tensor, grads: List[torch.Tensor]) -> bool:
@@ -162,7 +196,8 @@ def _update(state: TrainState, config: TrainConfig) -> None:
 def make_train_step(config: TrainConfig, uniform: Uniform
                     ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """The train step: forward in train mode (BatchNorm on batch statistics),
-    loss, backward, then the optimizer, unless the loss or any gradient is
+    loss (``shapenet_loss_fn`` or, for a ``Pix3DModel``, ``pix3d_loss_fn``),
+    backward, then the optimizer, unless the loss or any gradient is
     non-finite (``skip_nonfinite``: params, optimizer state, schedule and BN
     buffers stay as they were, and ``grads_finite`` reads 0).
 
@@ -181,7 +216,8 @@ def make_train_step(config: TrainConfig, uniform: Uniform
             p.grad = None
         if config.skip_nonfinite:
             buffers = [(b, b.clone()) for b in model.buffers()]
-        total, metrics = shapenet_loss_fn(model, config, batch, uniform)
+        loss_fn = pix3d_loss_fn if isinstance(model, Pix3DModel) else shapenet_loss_fn
+        total, metrics = loss_fn(model, config, batch, uniform)
         with record_function("train/backward"):
             total.backward()
         ok = True

@@ -8,7 +8,8 @@ Builds the bench recipe (``harness.shapenet_bench_setup``, or with ``--train``
 capacities 8192/16384/32768, 10k-point clouds, B=3, random weights from seed
 0; ``--estimator`` sets normal weight 0.1 and the kNN + PCA normals; with
 ``--pix3d`` the Pix3D eval recipe of ``harness.pix3d_bench_setup``, bfloat16
-detection stack at 224x224, B=4, ranked AP), runs one forward, then prints
+detection stack at 224x224, B=4, ranked AP, and with ``--pix3d --train`` its
+train step, ``harness.pix3d_train_setup``), runs one forward, then prints
   1. ``validate`` (``validate_pix3d``, ``train_epoch``) over each window of batches in
      ``--windows``, in that order, in this one process: steady ms/batch and
      samples/s (the first batch of a window is booked apart), so windows of
@@ -16,8 +17,11 @@ detection stack at 224x224, B=4, ranked AP), runs one forward, then prints
   2. the untraced wall time of ``--batches`` whole batches, and a
      ``torch.profiler`` trace of them: host and device time of each
      ``record_function`` range of the forward, the losses or metrics and the
-     train step, and device time by kernel, with the kernels' share of the
-     untraced wall, and with ``--pix3d`` the NMS sweeps a call.
+     train step (``losses/rpn``, ``losses/roi heads`` and ``losses/mask``
+     nest inside ``forward/rpn`` and ``forward/roi heads``' calls), with
+     ``--train`` the device time of the autograd nodes of the backward, and
+     device time by kernel, with the kernels' share of the untraced wall, and
+     with ``--pix3d`` the NMS sweeps a call.
 Needs a CUDA device; there is no CPU fallback.
 """
 from __future__ import annotations
@@ -29,9 +33,9 @@ import torch
 
 from meshrcnn_tpu_torch.core.config import LossWeights
 from meshrcnn_tpu_torch.harness import (pix3d_bench_setup, pix3d_eval_metrics,
-                                        shapenet_bench_setup, shapenet_eval_metrics,
-                                        shapenet_train_setup, train_epoch, validate,
-                                        validate_pix3d)
+                                        pix3d_train_setup, shapenet_bench_setup,
+                                        shapenet_eval_metrics, shapenet_train_setup,
+                                        train_epoch, validate, validate_pix3d)
 from meshrcnn_tpu_torch.ops import nms
 from meshrcnn_tpu_torch.ops.sampling import uniform_from
 from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
@@ -49,7 +53,8 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--estimator", action="store_true",
                     help="normal weight 0.1 with kNN + PCA normals (face_normals=False)")
-    ap.add_argument("--pix3d", action="store_true", help="profile the Pix3D eval path")
+    ap.add_argument("--pix3d", action="store_true",
+                    help="profile the Pix3D eval path (with --train, its train step)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a CUDA device")
@@ -64,7 +69,8 @@ def main() -> None:
                                                   edge=0.5), face_normals=False)
     uniform = uniform_from(torch.Generator(device=dev).manual_seed(0))
     if args.train:
-        model, config, batches = shapenet_train_setup(n_batches, dev, **overrides)
+        setup = pix3d_train_setup if args.pix3d else shapenet_train_setup
+        model, config, batches = setup(n_batches, dev, **overrides)
         state = create_train_state(model, config)
         step = make_train_step(config, uniform)
         step(state, Batch.from_host(batches[0], dev))
@@ -137,6 +143,17 @@ def main() -> None:
         if e.key.startswith(_RANGES) and e.device_type == torch.autograd.DeviceType.CPU:
             print(f"  {e.key:22s} host {e.cpu_time_total / 1e3 / n:9.3f}  "
                   f"device {e.device_time_total / 1e3 / n:9.3f}")
+    if args.train:
+        # backward kernels run on autograd's thread, outside every range: the
+        # device time of the autograd nodes that launched them is what names them
+        nodes = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                 and "Backward" in e.key and not e.key.startswith("autograd::")]
+        nodes.sort(key=lambda e: e.device_time_total, reverse=True)
+        print(f"backward nodes, ms/batch: "
+              f"{sum(e.device_time_total for e in nodes) / 1e3 / n:.3f} device in all")
+        for e in nodes[:12]:
+            print(f"  {e.key[:40]:40s} host {e.cpu_time_total / 1e3 / n:9.3f}  "
+                  f"device {e.device_time_total / 1e3 / n:9.3f}  calls {e.count / n:7.1f}")
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith(_RANGES)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)

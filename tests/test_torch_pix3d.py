@@ -146,7 +146,7 @@ def _to_port_output(out) -> Pix3DOutput:
         detections=Detections(boxes=t(det.boxes), labels=t(det.labels).long(),
                               scores=t(det.scores), valid=t(det.valid),
                               roi_features=t(det.roi_features)),
-        mask_probs=t(out.mask_probs), voxels=t(out.voxels), mesh=mesh,
+        mask_probs=t(out.mask_probs), backbone_losses={}, voxels=t(out.voxels), mesh=mesh,
         stage_verts=tuple(t(v) for v in out.stage_verts), mesh_valid=t(out.mesh_valid),
         overflow=None)
 

@@ -153,7 +153,9 @@ def heads_run():
     det, _, mask_probs = jax.jit(lambda p: jm.apply({"params": p}, *args))(params)
     tm = load_flax(theads.RoIHeads(num_classes=4, detections_per_img=3), {"params": params})
     with torch.no_grad():
-        tdet, tmask = tm([t(f).permute(0, 3, 1, 2) for f in feats], t(props), t(valid), (H, H))
+        tdet, losses, tmask = tm([t(f).permute(0, 3, 1, 2) for f in feats], t(props), t(valid),
+                                 (H, H))
+    assert losses == {}
     return dict(det=det, mask_probs=mask_probs, tdet=tdet, tmask=tmask, props=props,
                 valid=valid)
 

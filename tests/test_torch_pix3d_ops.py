@@ -138,7 +138,7 @@ def test_roi_align_matches_jax_corner_gather(monkeypatch):
 @pytest.mark.parametrize("size", [64, 224])
 def test_anchors_match_jax(size):
     shapes = [(-(-size // s), -(-size // s)) for s in (4, 8, 16, 32, 64)]
-    for a, b in zip(rpn.generate_anchors(shapes, (size, size)),
+    for a, b in zip(rpn.generate_anchors(shapes, (size, size), "cpu"),
                     jrpn.generate_anchors(shapes, (size, size))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 

@@ -74,6 +74,31 @@ def pix3d_eval_metric_draws(key, B: int, D: int, n: int, ranked: bool = True,
     return draws
 
 
+def sampler_pair_draws(key, B: int, n: int) -> list:
+    """The two [B, n] uniforms of per-image ``balanced_sample`` calls under
+    ``split(key, B)``: every image's positive scores, then every image's
+    negative scores (each image splits its key into the two)."""
+    pairs = [jax.random.split(k) for k in jax.random.split(key, B)]
+    return [np.stack([np.asarray(jax.random.uniform(p[j], (n,))) for p in pairs])
+            for j in (0, 1)]
+
+
+def pix3d_train_step_draws(key, B: int, anchors: int, proposals: int, roi_batch: int,
+                           pcs: int, num_stages: int = 3) -> list:
+    """Every uniform of the JAX ``pix3d_loss_fn(..., key)``, in the port's order:
+    k_model, k_mesh = split(key); the RPN sampler's pair over ``anchors`` rows
+    from fold_in(k_model, 3); the RoI sampler's pair over ``proposals`` rows
+    (RPN proposals + GT boxes) from fold_in(k_model, 5); the mask loss's
+    [B, roi_batch] from fold_in(fold_in(k_model, 5), 101); then the mesh
+    losses' ``train_step_draws`` from k_mesh."""
+    k_model, k_mesh = jax.random.split(key)
+    k_roi = jax.random.fold_in(k_model, 5)
+    return (sampler_pair_draws(jax.random.fold_in(k_model, 3), B, anchors)
+            + sampler_pair_draws(k_roi, B, proposals)
+            + [np.asarray(jax.random.uniform(jax.random.fold_in(k_roi, 101), (B, roi_batch)))]
+            + train_step_draws(k_mesh, B, pcs, num_stages))
+
+
 class Replay:
     """A ``uniform(shape)`` source that hands out recorded draws in order."""
 
