@@ -21,12 +21,18 @@ Phases, each of which fails the run:
      the train step (K1 x 3 a step, no K3), Pix3D eval with ranked AP (K1 x 5
      a batch; bfloat16 detection stack, held against its float32 FPN), the
      Pix3D train step (K1 x 3 a step, no K3), the reference kNN + PCA normal
-     estimator in training and eval (K3 x 6 a step and a batch), and the
-     single-sample chamfer distance and kNN (K2, K4);
+     estimator in training and eval (K3 x 6 a step and a batch), the
+     single-sample chamfer distance and kNN (K2, K4), and the user's entry
+     points: ``python -m meshrcnn_tpu_torch.train`` for 4 steps of each model
+     through the data layer, its checkpoint reloaded bit-equal and resumed for
+     a step, then ``eval_model`` on that checkpoint (K1 x 3 a step, x 4 / x 5
+     a ShapeNet / Pix3D eval batch); and the eval metrics of both models equal
+     in every bit over two runs;
   4. run small models on the card and on the CPU with the same weights: the
      ShapeNet and Pix3D eval forwards, one ShapeNet and one Pix3D train step,
      and the backward of each module and loss the steps differentiate through
-     (gradients within 1e-4 of each tensor's scale in float32, 1e-9 in float64).
+     (gradients within 1e-4 of each tensor's scale in float32, 1e-9 in float64),
+     the tiny Pix3D step with its mesh branch in float64 among them.
 Prints the card's name and power limit, a JSON line with every kernel's
 numbers, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without that line when there is no CUDA device or any phase fails.
@@ -36,6 +42,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -752,6 +759,224 @@ def phase_single(kernels, calls: int = 3):
     kernels["knn_topk"]["launches"] = counts["knn_topk"]
 
 
+def phase_eval_bit_equal(batches: int = 2):
+    """ShapeNet and Pix3D eval at full width (the bench recipes), twice on the
+    same batches with the same draws: every metric, chamfer, normal, edge,
+    F1 and the APs, must be the same bits in both runs. The refine stages'
+    neighbour sums are segment sums in a fixed order (``ops/graph_conv.py``),
+    and no other sum of the eval path adds floats in the order of atomics."""
+    import torch
+
+    from meshrcnn_tpu_torch.harness import (pix3d_bench_setup, shapenet_bench_setup, validate,
+                                            validate_pix3d)
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
+
+    dev = torch.device("cuda")
+    timing = {"batch_time", "data_loading", "warmup_time"}
+    for tag, setup, fn, classes in (("ShapeNet", shapenet_bench_setup, validate, 13),
+                                    ("Pix3D", pix3d_bench_setup, validate_pix3d, 10)):
+        model, config, loader = setup(batches, dev)
+        runs = [fn(make_eval_step(model), loader, config, classes,
+                   uniform_from(torch.Generator(device=dev).manual_seed(5)), device=dev,
+                   print_freq=10 ** 9) for _ in range(2)]
+        keys = sorted(set(runs[0]) - timing - {"confusion"})
+        differ = [k for k in keys if not np.array_equal(runs[0][k], runs[1][k])]
+        if not np.array_equal(runs[0]["confusion"], runs[1]["confusion"]):
+            differ.append("confusion")
+        print(f"[eval bits] {tag}: two runs of {batches} batches; {len(keys)} metrics, "
+              f"differing: {differ or 'none'}; chamfer {runs[0]['chamfer_loss']!r}, "
+              f"normal {runs[0]['normal_loss']!r}, F1@0.1 {runs[0]['F1@0.1']!r}")
+        if differ:
+            _fail(f"{tag} eval metrics differ between two runs: "
+                  f"{ {k: (runs[0][k], runs[1][k]) for k in differ if k != 'confusion'} }")
+
+
+def _same_state(a, b) -> list:
+    """Names of the entries where two train states differ: parameters and
+    buffers, optimizer state, schedule, step and generator state."""
+    import torch
+    differ = [k for k, v in a.model.state_dict().items()
+              if not torch.equal(v, b.model.state_dict()[k])]
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    for i, st in sa["state"].items():
+        for k, v in st.items():
+            w = sb["state"][i][k]
+            if not (torch.equal(v, w) if torch.is_tensor(v) else v == w):
+                differ.append(f"optimizer {i} {k}")
+    if [g["lr"] for g in a.optimizer.param_groups] != [g["lr"] for g in b.optimizer.param_groups]:
+        differ.append("lr")
+    if a.step != b.step:
+        differ.append("step")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        differ.append("generator")
+    return differ
+
+
+def phase_cli(kernels, root: str):
+    """The user's path: ``python -m meshrcnn_tpu_torch.train`` then
+    ``eval_model --model_path`` on its checkpoint, called in process (``main``)
+    so that the K1 counters can be read, at the bench widths: ShapeNet with
+    residual refinement, B=3, capacities 8192/16384/32768, 10k-point clouds;
+    Pix3D at 224x224 with a bfloat16 detection stack, B=4, capacities
+    4096/8192/16384, SGD at lr 0.02 under the Pix3D schedule with the
+    backbone trained and voxel weight 3. Each trains 12 steps on the synthetic
+    dataset with 2 loader threads, evaluates 6 batches of the held-out side of
+    the split, and is checked: every metric finite, K1 launches exact (3 a
+    train step, 4 a ShapeNet and 5 a Pix3D eval batch), the final checkpoint
+    reloaded on the card equal in every bit (parameters, buffers, optimizer
+    state, learning rate, step, generator), one resumed step continuing the
+    step count and the Pix3D learning rate, the stats and metrics files
+    readable. Each batch's wait for the loader is printed: the ``data_loading``
+    meter averages them with the first, which no thread prefetches."""
+    from meshrcnn_tpu_torch import harness
+
+    recipes = {
+        "ShapeNet": (3, ["--residual", "--vert_capacity", "8192", "--face_capacity", "16384",
+                         "--edge_capacity", "32768"], [], 4),
+        "Pix3D": (4, ["--img_size", "224", "--vert_capacity", "4096", "--face_capacity", "8192",
+                      "--edge_capacity", "16384"],
+                  ["--optim", "SGD", "--lr", "0.02", "--weightDecay", "1e-4",
+                   "--train_backbone", "--voxel", "3"], 5),
+    }
+    waits = []                         # each batch's wait, in the order waited
+    timed_iter = harness._timed_iter
+
+    class Booked:
+        """The loader's meter, keeping each wait as well as their mean."""
+        def __init__(self, meter):
+            self.meter = meter
+
+        def update(self, value, n=1):
+            waits.append(value)
+            self.meter.update(value, n)
+
+    def wait_line(step_ms):
+        ms = [w * 1e3 for w in waits]
+        steady = float(np.mean(ms[1:]))
+        return (f"waits for the loader {ms[0]:.3f} ms for the first batch, then "
+                f"{steady:.3f} ms a batch over {len(ms) - 1} ({steady / step_ms:.2%} of a "
+                f"steady step); each {json.dumps([round(m, 3) for m in ms])}")
+
+    harness._timed_iter = lambda loader, meter: timed_iter(loader, Booked(meter))
+    try:
+        _cli_runs(kernels, root, recipes, waits, wait_line)
+    finally:
+        harness._timed_iter = timed_iter
+
+
+def _cli_runs(kernels, root, recipes, waits, wait_line):
+    import os
+    import pickle
+
+    import torch
+
+    from meshrcnn_tpu_torch import eval_model, train
+    from meshrcnn_tpu_torch.parallel.train_step import create_train_state, pix3d_lr
+    from meshrcnn_tpu_torch.utils import cli
+    from meshrcnn_tpu_torch.utils.checkpoint import load_state
+    from meshrcnn_tpu_torch.utils.meters import load_stats
+
+    steps, eval_batches = 12, 6
+    for model_name, (B, shape_flags, train_flags, k1_eval) in recipes.items():
+        n_train, n_test = steps * B, eval_batches * B
+        common = ["--model", model_name, "-b", str(B), "--point_cloud_size", "10000",
+                  "--synthetic_size", str(n_train + n_test), "--workers", "2",
+                  "--print_freq", "1000"] + shape_flags
+        ck_root = os.path.join(root, "checkpoints")
+        _reset_counts()
+        waits.clear()
+        t0 = time.perf_counter()
+        out = train.main(common + train_flags + ["--num_sampels", str(n_train), "--nEpoch", "1",
+                                                 "--checkpoint_root", ck_root])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        meters, state = out["meters"], out["state"]
+        step_ms = meters["batch_time"].history[0] * 1e3
+        print(f"[cli] {model_name} train: {steps} steps of {B} in {wall:.3f} s; steady "
+              f"{step_ms:.2f} ms/step over {steps - 1} (first step "
+              f"{meters['warmup_time'].history[0] * 1e3:.2f} ms); data_loading meter "
+              f"{meters['data_loading'].history[0] * 1e3:.3f} ms; {wait_line(step_ms)}; "
+              f"launches {counts}")
+        if len(waits) != steps:
+            _fail(f"{model_name} train: {len(waits)} waits for {steps} steps")
+        history = {k: m.history for k, m in meters.items()}
+        if not all(np.isfinite(h).all() and len(h) == 1 for h in history.values()):
+            _fail(f"{model_name} train: a meter is not finite: {history}")
+        if state.step != steps or meters["grads_finite"].history != [1.0]:
+            _fail(f"{model_name} train: {state.step} steps, grads_finite "
+                  f"{meters['grads_finite'].history}")
+        want = {"chamfer_nn_bidir": 3 * steps, "knn_topk_batched": 0,
+                "chamfer_sums_fused": 0, "knn_topk": 0}
+        if counts != want:
+            _fail(f"{model_name} train CLI launched {counts}, want {want}")
+        total = counts["chamfer_nn_bidir"]
+        stats = load_stats(out["stats"][0])
+        if set(stats) != set(meters) or not all(
+                isinstance(v["name"], str) and all(type(h) is float for h in v["history"])
+                for v in stats.values()):
+            _fail(f"{model_name}: {out['stats'][0]} is not a dict of names and float histories")
+
+        # the final checkpoint, reloaded into a fresh state on the card
+        options = train.parser.parse_args(common + train_flags)
+        dev = torch.device("cuda")
+        settings = train.model_settings(options, dev)
+        fresh = create_train_state(cli.build_model(settings, dev), train.train_config(options),
+                                   torch.Generator(device=dev).manual_seed(123))
+        load_state(out["final"], fresh, settings)
+        differ = _same_state(state, fresh)
+        print(f"[cli] {model_name} checkpoint {os.path.basename(out['final'])} reloaded on the "
+              f"card: {len(fresh.model.state_dict())} tensors, step {fresh.step}; "
+              f"differing: {differ or 'none'}")
+        if differ:
+            _fail(f"{model_name}: the reloaded checkpoint differs in {differ}")
+
+        # one more step from the checkpoint
+        _reset_counts()
+        resumed = train.main(common + train_flags + [
+            "--num_sampels", str(B), "--nEpoch", "1", "--model_path", out["final"],
+            "--checkpoint_root", os.path.join(root, "resumed")])["state"]
+        counts = _counts()
+        lr = resumed.optimizer.param_groups[0]["lr"]
+        print(f"[cli] {model_name} resumed one step: step {resumed.step}, lr {lr!r}; "
+              f"launches {counts}")
+        if resumed.step != steps + 1 or counts["chamfer_nn_bidir"] != 3:
+            _fail(f"{model_name}: the resumed run took step {resumed.step}, launched {counts}")
+        if model_name == "Pix3D" and (lr != 1.0 * pix3d_lr(steps + 1)
+                                      or resumed.scheduler.last_epoch != steps + 1):
+            _fail(f"Pix3D: the resumed schedule gives lr {lr}, want {pix3d_lr(steps + 1)}")
+        total += counts["chamfer_nn_bidir"]
+
+        # eval of the checkpoint on the held-out side of the split
+        _reset_counts()
+        waits.clear()
+        t0 = time.perf_counter()
+        res = eval_model.main(common + ["--model_path", out["final"], "--test_ratio",
+                                        repr(n_test / (n_train + n_test)),
+                                        "--output_path", os.path.join(root, "eval")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        with open(res["path"], "rb") as f:
+            saved = pickle.load(f)
+        scalars = {k: v for k, v in saved.items() if k != "confusion"}
+        print(f"[cli] {model_name} eval: {eval_batches} batches of {B} in {wall:.3f} s; steady "
+              f"{res['batch_time'] * 1e3:.2f} ms/batch over {eval_batches - 1} (first "
+              f"{res['warmup_time'] * 1e3:.2f} ms); data_loading meter "
+              f"{res['data_loading'] * 1e3:.3f} ms; {wait_line(res['batch_time'] * 1e3)}; "
+              f"launches {counts}; metrics {json.dumps(scalars)}")
+        if len(waits) != eval_batches:
+            _fail(f"{model_name} eval: {len(waits)} waits for {eval_batches} batches")
+        if not all(np.isfinite(v) for v in scalars.values()) or "confusion" not in saved:
+            _fail(f"{model_name} eval: a non-finite metric or no confusion in {res['path']}")
+        want = {"chamfer_nn_bidir": k1_eval * eval_batches, "knn_topk_batched": 0,
+                "chamfer_sums_fused": 0, "knn_topk": 0}
+        if counts != want:
+            _fail(f"{model_name} eval CLI launched {counts}, want {want}")
+        kernels["chamfer_nn_bidir"]["launches"] += total + counts["chamfer_nn_bidir"]
+
+
 def _tiny_model():
     from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel
     return ShapeNetModel(num_classes=13, residual=False, cubify_threshold=0.2,
@@ -1135,13 +1360,18 @@ def _pix3d_backward_pieces():
     the detection stack composed: the tiny Pix3D model without its mesh branch
     in train mode (FPN with BatchNorm over the batch, RPN, proposals, RoI
     heads, the best-IoU RoI feature and the voxel head) on the tiny train
-    batch, its running statistics held too. Channels and heads at the bench
-    recipe's widths, B=2; every sampler draws the same fixed uniforms on both
-    devices."""
+    batch, its running statistics held too; and the tiny train step whole
+    (``pix3d_loss_fn``: the stack, then cubify, the refine stages and the
+    sampled chamfer, normal and edge losses of 256-point clouds, K1's indices
+    taken from a float32 launch and every gather and distance in float64).
+    Channels and heads at the bench recipe's widths, B=2; every sampler draws
+    the same fixed uniforms on both devices."""
     import torch
 
+    from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
     from meshrcnn_tpu_torch.models.pix3d import filter_roi_input
     from meshrcnn_tpu_torch.models.roi_heads import Detections, RoIHeads
+    from meshrcnn_tpu_torch.parallel.train_step import Batch, pix3d_loss_fn
     from meshrcnn_tpu_torch.models.rpn import generate_anchors, rpn_loss
     from meshrcnn_tpu_torch.ops import roi_align
 
@@ -1222,6 +1452,21 @@ def _pix3d_backward_pieces():
     batch = _tiny_pix3d_batch()
     voxel_cot = randn(*batch.voxels.shape)
 
+    # the whole tiny step, its mesh branch composed: cubify, refine and the
+    # sampled chamfer / normal / edge losses, K1's indices from float32 casts
+    torch.manual_seed(9)
+    whole = _tiny_pix3d_model().train()
+    step_config = TrainConfig(point_cloud_size=256, loss_weights=LossWeights(
+        voxel=3.0, chamfer=1.0, normal=0.1, edge=0.5))
+
+    def step_fn(m, f, i):
+        draws = np.random.RandomState(10)
+        b = Batch(images=f[0], boxes=f[1], voxels=f[2], gt_verts=f[3], labels=i[0], masks=i[1],
+                  gt_faces=i[2], gt_faces_mask=i[3])
+        total, _ = pix3d_loss_fn(m, step_config, b, lambda shape: torch.from_numpy(
+            draws.rand(*shape).astype(np.float32)).to(f[0].device))
+        return total
+
     def stack_fn(m, f, i):
         draws = np.random.RandomState(8)
         out = m(f[0], f[1], i[0], i[1], lambda shape: torch.from_numpy(
@@ -1244,6 +1489,10 @@ def _pix3d_backward_pieces():
         "pix3d detection stack": (stack, [batch.images, batch.boxes],
                                   [batch.labels.astype(np.int64), batch.masks > 0.5], stack_fn,
                                   f64),
+        "pix3d step with its mesh branch": (
+            whole, [batch.images, batch.boxes, batch.voxels, batch.gt_verts],
+            [batch.labels.astype(np.int64), batch.masks > 0.5, batch.gt_faces,
+             batch.gt_faces_mask], step_fn, f64),
     }
 
 
@@ -1297,20 +1546,29 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = phase_build()
-    kernels = phase_kernels(card)
-    phase_nms()
-    phase_slice()
-    phase_train(kernels)
-    phase_pix3d_eval(kernels)
-    phase_pix3d_train(kernels)
-    phase_estimator(kernels)
-    phase_single(kernels)
-    phase_small_card_vs_cpu()
-    phase_small_pix3d_card_vs_cpu()
-    phase_small_train_card_vs_cpu()
-    phase_small_pix3d_train_card_vs_cpu()
-    phase_small_backward_card_vs_cpu()
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    card = timed(phase_build)
+    kernels = timed(phase_kernels, card)
+    timed(phase_nms)
+    timed(phase_slice)
+    timed(phase_train, kernels)
+    timed(phase_pix3d_eval, kernels)
+    timed(phase_eval_bit_equal)
+    timed(phase_pix3d_train, kernels)
+    timed(phase_estimator, kernels)
+    timed(phase_single, kernels)
+    with tempfile.TemporaryDirectory() as root:
+        timed(phase_cli, kernels, root)
+    timed(phase_small_card_vs_cpu)
+    timed(phase_small_pix3d_card_vs_cpu)
+    timed(phase_small_train_card_vs_cpu)
+    timed(phase_small_pix3d_train_card_vs_cpu)
+    timed(phase_small_backward_card_vs_cpu)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,17 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+
+def resolve_backbone_dtype(choice: str, device: torch.device | str) -> str:
+    """The ``--backbone_dtype`` flag as a dtype name. "auto" is bfloat16 on the
+    card and float32 on the CPU (the parity mode); the detection stack's
+    norms, box math and losses are float32 either way."""
+    if choice != "auto":
+        return choice
+    return "float32" if torch.device(device).type == "cpu" else "bfloat16"
+
 
 @dataclasses.dataclass
 class LossWeights:

@@ -32,7 +32,7 @@ from meshrcnn_tpu_torch.ops.chamfer_cuda import nn_bidir
 from meshrcnn_tpu_torch.ops.losses import batched_mesh_loss, voxel_loss
 from meshrcnn_tpu_torch.ops.sampling import Uniform, batched_sample_points
 from meshrcnn_tpu_torch.parallel.train_step import Batch, TrainState
-from meshrcnn_tpu_torch.utils.meters import AverageMeter, gcn_metrics
+from meshrcnn_tpu_torch.utils.meters import AverageMeter, ProgressMeter, gcn_metrics
 from meshrcnn_tpu_torch.utils.metrics import (detection_map, f_score, mesh_precision_recall,
                                               paste_masks)
 
@@ -163,21 +163,22 @@ def train_epoch(epoch: int, step_fn: Callable[[TrainState, Batch], Dict[str, tor
     of ``harness.train_epoch`` without its multi-step dispatch; reference:
     train_utils.py:174-250). A Pix3D batch carries ``boxes`` and ``masks``,
     which ``Batch.from_host`` copies. Every metric of the step goes to a meter of its
-    name; the first step of a run is booked as ``warmup_time``. Returns
+    name; the first step of a run is booked as ``warmup_time``; every
+    ``print_freq`` steps ``ProgressMeter`` prints the meters given. Returns
     (state, meters) after ``epoch_end`` on every meter."""
+    progress = ProgressMeter(len(loader), meters.values(), prefix=f"Epoch: [{epoch}]")
     end = time.time()
     for i, batch in enumerate(_timed_iter(loader, meters["data_loading"])):
         metrics = step_fn(state, Batch.from_host(batch, device))
         values = torch.stack(list(metrics.values())).tolist()     # one copy to the host
         for k, v in zip(metrics, values):
             if k not in meters:
-                meters[k] = AverageMeter(k)
+                meters[k] = AverageMeter(k, ":.4f")
             meters[k].update(v)
         _book_step_time(meters, time.time() - end)
         end = time.time()
         if i % print_freq == 0:
-            print(f"Epoch: [{epoch}][{i}] " + "\t".join(
-                f"{k} {m.val:.4f} ({m.avg:.4f})" for k, m in meters.items()))
+            progress.display(i)
     for m in meters.values():
         m.epoch_end()
     return state, meters
@@ -301,7 +302,7 @@ def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterab
         _book_step_time(meters, time.time() - end)
         end = time.time()
         if i % print_freq == 0:
-            print(f"eval [{i}] voxel {meters['voxel_loss'].avg:.4f}")
+            print(f"eval [{i}/{len(loader)}] voxel {meters['voxel_loss'].avg:.4f}")
 
     results = {k: m.avg for k, m in meters.items()}
     for beta, name in ((0.1, "f0_1"), (0.3, "f0_3"), (0.5, "f0_5")):
@@ -456,7 +457,7 @@ def validate_pix3d(eval_step: Callable[[torch.Tensor], Pix3DOutput], loader: Ite
         _book_step_time(meters, time.time() - end)
         end = time.time()
         if i % print_freq == 0:
-            print(f"pix3d eval [{i}] AP_box {meters['AP_box'].avg:.3f}")
+            print(f"pix3d eval [{i}/{len(loader)}] AP_box {meters['AP_box'].avg:.3f}")
 
     results = {k: m.avg for k, m in meters.items()}
     for beta, name in ((0.1, "f0_1"), (0.3, "f0_3"), (0.5, "f0_5")):

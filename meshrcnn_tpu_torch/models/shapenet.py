@@ -59,9 +59,10 @@ class ShapeNetModel(nn.Module):
         self.backbone = ResNet50(num_classes=num_classes, dtype=cast.compute_dtype(backbone_dtype))
         self.voxelBranch = VoxelBranch(voxel_in_channels, voxel_out_channels)
         cell = ResVertixRefineShapenet if residual else VertixRefineShapeNet
-        for i in range(num_refinement_stages):
-            setattr(self, f"refine{i}", cell(use_input_features=i > 0,
-                                             num_features=vertex_feature_dim))
+        if not voxel_only:      # as in flax, a voxel-only model has no refine stages
+            for i in range(num_refinement_stages):
+                setattr(self, f"refine{i}", cell(use_input_features=i > 0,
+                                                 num_features=vertex_feature_dim))
         self.num_refinement_stages = num_refinement_stages
 
     def forward(self, images: torch.Tensor) -> ShapeNetOutput:

@@ -153,8 +153,10 @@ def exact_sums_batched(p, q, i_p, i_q):
 
 def chamfer_sums_batched(p: torch.Tensor, q: torch.Tensor):
     """(sum_p [B], idx_p [B,N], sum_q [B], idx_q [B,M]) through K1; the forward of
-    ``chamfer_sums_fused_batched``."""
-    _, i_p, _, i_q = nn_bidir(p, q)
+    ``chamfer_sums_fused_batched``. K1 takes float32: clouds of another dtype
+    (float64 in the card-vs-CPU backward checks) take their indices from K1 on
+    their float32 casts, and their sums, and so the gradient, in their own dtype."""
+    _, i_p, _, i_q = nn_bidir(p.detach().float(), q.detach().float())
     s_p, s_q = exact_sums_batched(p, q, i_p, i_q)
     return s_p, i_p, s_q, i_q
 

@@ -97,7 +97,8 @@ def cubify(grid: torch.Tensor, threshold: float = 0.5, *, vert_capacity: int = 4
            face_capacity: int = 8192, edge_capacity: int = 16384):
     """Cubify occupancy probabilities [B, Z, Y, X] -> (MeshBatch, CubifyOverflow).
 
-    An empty grid gives an all-masked sample.
+    Vertices come out in the grid's dtype (their half-integer coordinates are
+    exact in any float type). An empty grid gives an all-masked sample.
     """
     B, Z, Y, X = grid.shape
     dev = grid.device
@@ -116,7 +117,7 @@ def cubify(grid: torch.Tensor, threshold: float = 0.5, *, vert_capacity: int = 4
                                 torch.arange(Y + 1, device=dev),
                                 torch.arange(X + 1, device=dev), indexing="ij")
     coords = torch.stack([lz.reshape(-1) - 0.5, lx.reshape(-1) - 0.5,
-                          -(ly.reshape(-1) - 0.5)], dim=-1).float()
+                          -(ly.reshape(-1) - 0.5)], dim=-1).to(grid.dtype)
     v_src, verts_mask, n_verts = _compact(cum_used, vert_capacity)
     verts = torch.where(verts_mask[..., None], coords[v_src], 0.0)
 

@@ -6,7 +6,7 @@ Area-weighted face choice by inverse CDF, then the sqrt-barycentric trick
 
 Randomness comes from a ``uniform(shape)`` callable, drawn three times per
 call in a fixed order: the face-choice uniforms ``u``, then ``xi1``, then
-``xi2``, each [B, num_points]. ``uniform_from(generator)`` makes one from a
+``xi2``, each [B, num_points], and used in the vertices' dtype. ``uniform_from(generator)`` makes one from a
 ``torch.Generator``; tests hand in the JAX package's draws instead.
 """
 from __future__ import annotations
@@ -51,13 +51,13 @@ def batched_sample_points(verts: torch.Tensor, faces: torch.Tensor,
     valid = total > 1e-12
     probs = areas / torch.where(valid, total, torch.ones_like(total))[:, None]
     cdf = torch.cumsum(probs, dim=1)
-    u = uniform((B, num_points)).to(dev)
+    u = uniform((B, num_points)).to(dev, verts.dtype)
     face_idx = torch.searchsorted(cdf, u, side="left").clamp(max=F - 1)
 
     corners = batched_gather_rows(faces, face_idx)                # [B, N, 3]
     chosen = batched_gather_rows(verts, corners.reshape(B, -1)).reshape(B, num_points, 3, 3)
-    xi1_sqrt = torch.sqrt(uniform((B, num_points)).to(dev))
-    xi2 = uniform((B, num_points)).to(dev)
+    xi1_sqrt = torch.sqrt(uniform((B, num_points)).to(dev, verts.dtype))
+    xi2 = uniform((B, num_points)).to(dev, verts.dtype)
     w0 = 1.0 - xi1_sqrt
     w1 = (1.0 - xi2) * xi1_sqrt
     w2 = xi2 * xi1_sqrt

@@ -54,10 +54,14 @@ class Batch:
 
 @dataclasses.dataclass
 class TrainState:
+    """What a train step updates and a checkpoint holds: the model, the
+    optimizer and its schedule, the step count and the generator of the
+    step's uniform draws."""
     model: ShapeNetModel | Pix3DModel
     optimizer: torch.optim.Optimizer
     scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
     step: int = 0
+    generator: Optional[torch.Generator] = None
 
 
 def pix3d_lr(step: int) -> float:
@@ -91,9 +95,10 @@ def make_optimizer(config: TrainConfig, model: torch.nn.Module):
     return opt, sched
 
 
-def create_train_state(model: ShapeNetModel | Pix3DModel, config: TrainConfig) -> TrainState:
+def create_train_state(model: ShapeNetModel | Pix3DModel, config: TrainConfig,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
     opt, sched = make_optimizer(config, model)
-    return TrainState(model=model, optimizer=opt, scheduler=sched)
+    return TrainState(model=model, optimizer=opt, scheduler=sched, generator=generator)
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:

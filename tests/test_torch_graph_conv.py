@@ -2,7 +2,9 @@
 
 Aggregation tolerance: the JAX package sums each vertex's neighbours as a
 difference of two prefix sums over all E edges, which loses about eps * |prefix|
-to cancellation; the port's ``index_add_`` sums only the vertex's own edges.
+to cancellation; the port sums only the vertex's own edges, one segment of the
+destination-sorted edge list each (on the CPU the same bits as an
+``index_add_`` over the unsorted list, which adds in the same order).
 Both are held to a float64 reference: the port to 1e-5 relative, JAX to its
 own cancellation bound, and the two to each other at 1e-4 of the feature scale.
 """
@@ -57,6 +59,50 @@ def test_aggregation_matches_jax_and_ignores_padded_edges(B, V, E, C):
     # an all-padded batch aggregates to zero
     none = precompute_adjacency(t(edges), torch.zeros_like(t(mask)), V)
     assert not aggregate_neighbours(t(feats), none).any()
+
+
+def _index_add(feats, edges, mask):
+    """The aggregation as an ``index_add_`` over the unsorted edge list."""
+    B, V, C = feats.shape
+    b, e = np.nonzero(mask)
+    lo = t(b * V + edges[b, e, 0]).long()
+    hi = t(b * V + edges[b, e, 1]).long()
+    flat = t(feats).reshape(B * V, C)
+    return torch.zeros_like(flat).index_add_(0, torch.cat([lo, hi]),
+                                             flat[torch.cat([hi, lo])]).reshape(B, V, C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_is_index_add_and_its_own_transpose(dtype):
+    B, V, E, C = 3, 128, 700, 16
+    edges, mask = _edges(11, B, V, E)
+    rng = np.random.RandomState(12)
+    feats = rng.randn(B, V, C)
+    cot = rng.randn(B, V, C)
+    topo = precompute_adjacency(t(edges), t(mask), V)
+    assert bool((topo.offsets[1:] >= topo.offsets[:-1]).all()) and topo.offsets[0] == 0
+    assert topo.offsets[-1] == 2 * mask.sum() and topo.offsets.shape == (B * V + 1,)
+    runs = []
+    for _ in range(2):
+        x = t(feats).to(dtype).requires_grad_(True)
+        out = aggregate_neighbours(x, topo)
+        out.backward(t(cot).to(dtype))
+        runs.append((out.detach(), x.grad))
+    # the same adds in the same order as the old index_add_: equal bits
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    assert torch.equal(runs[0][0], _index_add(feats.astype(np_dtype), edges, mask))
+    # the VJP of A x is A g (A symmetric), summed by the same segments
+    assert torch.equal(runs[0][1], aggregate_neighbours(t(cot).to(dtype), topo))
+    # and two runs give the same bits, forward and backward
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_segment_sum_gradcheck():
+    B, V, E, C = 2, 12, 30, 3
+    edges, mask = _edges(13, B, V, E)
+    topo = precompute_adjacency(t(edges), t(mask), V)
+    x = torch.from_numpy(np.random.RandomState(14).randn(B, V, C)).requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda f: aggregate_neighbours(f, topo), (x,))
 
 
 def test_vert_align_matches_jax():
