@@ -27,7 +27,14 @@ Phases, each of which fails the run:
      through the data layer, its checkpoint reloaded bit-equal and resumed for
      a step, then ``eval_model`` on that checkpoint (K1 x 3 a step, x 4 / x 5
      a ShapeNet / Pix3D eval batch); and the eval metrics of both models equal
-     in every bit over two runs;
+     in every bit over two runs; and data parallelism (``phase_dp``): two gloo
+     ranks spawned on the card train both models 3 steps at the bench recipes
+     (states equal in every bit across ranks, K1 x 3 a rank a step, the first
+     step against its one-process emulation, the tiny Pix3D step in float64
+     at 1e-9), evaluate both (gathered outputs against the one-process eval,
+     ``validate`` with K1 on rank 0), the train CLI on NCCL as rank 0 of a
+     world of one (``--multihost``), and ms/step of one and two ranks with the
+     all-reduce's share;
   4. run small models on the card and on the CPU with the same weights: the
      ShapeNet and Pix3D eval forwards, one ShapeNet and one Pix3D train step,
      and the backward of each module and loss the steps differentiate through
@@ -882,7 +889,7 @@ def _cli_runs(kernels, root, recipes, waits, wait_line):
         n_train, n_test = steps * B, eval_batches * B
         common = ["--model", model_name, "-b", str(B), "--point_cloud_size", "10000",
                   "--synthetic_size", str(n_train + n_test), "--workers", "2",
-                  "--print_freq", "1000"] + shape_flags
+                  "--print_freq", "1000", "--num_devices", "1"] + shape_flags
         ck_root = os.path.join(root, "checkpoints")
         _reset_counts()
         waits.clear()
@@ -1537,6 +1544,495 @@ def phase_small_backward_card_vs_cpu(device: str = "cuda"):
             _fail(f"{name}: {worst} differs between the card and the CPU")
 
 
+# ----------------------------------------------------------------------------
+# Data parallelism: ranks spawned by phase_dp. A spawned rank re-imports this
+# script as a module, so everything it runs lives at module level.
+
+DP_STEPS = 3
+DP_SEED = 1
+
+
+def _state_digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes, in state_dict order."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _emulated_step(start, config, shards, generators, scale: float = 1.0):
+    """One DP step in one process on the card: the loss and backward of every
+    shard from ``start`` with that rank's generator, the gradients (zero where
+    a parameter got none), metrics and BN running statistics averaged over
+    the shards, then the optimizer. Returns (metrics, gradients, statistics,
+    parameters)."""
+    import copy
+
+    import torch
+
+    from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel.train_step import (_update, create_train_state,
+                                                        pix3d_loss_fn, shapenet_loss_fn)
+    model = copy.deepcopy(start)
+    loss_fn = pix3d_loss_fn if isinstance(model, Pix3DModel) else shapenet_loss_fn
+    params = list(model.parameters())
+    sd0 = copy.deepcopy(model.state_dict())
+    grads, stats, metrics = [], [], []
+    for shard, gen in zip(shards, generators):
+        model.load_state_dict(sd0)
+        model.train()
+        for p in params:
+            p.grad = None
+        shard = copy.copy(shard)
+        shard.images = shard.images * scale
+        total, m = loss_fn(model, config, shard, uniform_from(gen))
+        total.backward()
+        grads.append([torch.zeros_like(p) if p.grad is None else p.grad for p in params])
+        stats.append({k: v.clone() for k, v in model.state_dict().items() if "running_" in k})
+        metrics.append(m)
+    model.load_state_dict(sd0)
+    n = len(shards)
+    mean = {k: sum(m[k] for m in metrics) / n for k in metrics[0]}
+    for i, p in enumerate(params):
+        p.grad = sum(g[i] for g in grads) / n
+    sd = model.state_dict()
+    for k in stats[0]:
+        sd[k].copy_(sum(s[k] for s in stats) / n)
+    g = {name: p.grad.clone() for name, p in model.named_parameters()}
+    _update(create_train_state(model, config), config)
+    return (mean, g, {k: sd[k].clone() for k in stats[0]},
+            {k: v.clone() for k, v in model.state_dict().items()
+             if "running_" not in k and "num_batches" not in k})
+
+
+def _dp_compare(got, runs, floor: float):
+    """{group: (distance, spread, scale)} of ``got`` against ``runs[0]``, the
+    spread the largest distance of another run to it."""
+    import torch
+    out = {}
+    for j, name in enumerate(("metrics", "gradients", "BN statistics", "parameters")):
+        keys = list(runs[0][j])
+        a = {k: got[j][k].double() for k in keys}
+        ref = {k: runs[0][j][k].double() for k in keys}
+        d = _distance(a, ref, keys)
+        spread = max([_distance({k: r[j][k].double() for k in keys}, ref, keys)
+                      for r in runs[1:]] or [0.0])
+        scale = _distance(ref, {k: torch.zeros_like(ref[k]) for k in keys}, keys)
+        out[name] = (d, spread, scale, floor)
+    return out
+
+
+def _dp_train_case(kind: str, rank: int, world: int, dev, timing_only: bool) -> dict:
+    """``DP_STEPS`` DP train steps of the full-width recipe of ``kind`` at its
+    bench batch a rank: each step's state digest, metrics, kernel launches,
+    ms and all-reduce ms; on rank 0 (unless ``timing_only``) the first step
+    against ``_emulated_step`` (twice, and on images scaled by 1 + 1e-6)."""
+    import copy
+
+    import torch
+
+    from meshrcnn_tpu_torch import harness
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel import distributed
+    from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
+                                                        make_dp_train_step)
+    if kind == "ShapeNet":
+        model, config, _ = harness.shapenet_train_setup(0, dev)
+        per, make = 3, harness.SyntheticBatch
+    else:
+        model, config, _ = harness.pix3d_train_setup(0, dev)
+        per, make = 4, harness.SyntheticPix3DBatch
+    rng = np.random.RandomState(7)
+    batches = [make(rng, B=per * world) for _ in range(DP_STEPS)]
+    gen = distributed.rank_generator(DP_SEED, rank, dev)
+    state = create_train_state(model, config, gen)
+    step = make_dp_train_step(config, uniform_from(gen))
+    reduce_ms = []
+    real = distributed.all_reduce_mean
+
+    def timed(tensors, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(tensors, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"digests": [], "metrics": [], "counts": [], "ms": [], "reduce_ms": reduce_ms}
+    distributed.all_reduce_mean = timed
+    try:
+        for i, host in enumerate(batches):
+            shard = Batch.from_host(distributed.shard_batch(host, rank, world), dev)
+            emulated = None
+            if i == 0 and rank == 0 and not timing_only:
+                shards = [Batch.from_host(distributed.shard_batch(host, r, world), dev)
+                          for r in range(world)]
+                start = copy.deepcopy(model)
+                emulated = [_emulated_step(start, config, shards, [
+                    distributed.rank_generator(DP_SEED, r, dev) for r in range(world)], s)
+                    for s in (1.0, 1.0, 1.0 + 1e-6)]
+                del start
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, shard)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["counts"].append(_counts())
+            out["metrics"].append(dict(zip(m, torch.stack(list(m.values())).tolist())))
+            out["digests"].append(_state_digest(model))
+            if emulated is not None:
+                got = (m, {n: p.grad for n, p in model.named_parameters()},
+                       {k: v for k, v in model.state_dict().items() if "running_" in k},
+                       {k: v for k, v in model.state_dict().items()
+                        if "running_" not in k and "num_batches" not in k})
+                out["emulation"] = _dp_compare(got, emulated, 1e-4)
+                del emulated
+    finally:
+        distributed.all_reduce_mean = real
+    return out
+
+
+def _dp_f64_case(rank: int, world: int, dev, timing_only: bool) -> dict:
+    """One DP step of the tiny Pix3D model in float64 (2 images a rank), and
+    on rank 0 its one-process emulation, held at 1e-9 of scale."""
+    import torch
+
+    from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel import distributed
+    from meshrcnn_tpu_torch.parallel.train_step import (Batch, create_train_state,
+                                                        make_dp_train_step)
+    torch.manual_seed(9)
+    model = _tiny_pix3d_model().to(dev, torch.float64)
+    config = TrainConfig(point_cloud_size=256, loss_weights=LossWeights(
+        voxel=3.0, chamfer=1.0, normal=0.1, edge=0.5))
+    host = _tiny_pix3d_batch(2 * world)
+
+    def batch_of(r):
+        b = Batch.from_host(distributed.shard_batch(host, r, world), dev)
+        for k in ("images", "voxels", "gt_verts", "boxes", "masks"):
+            setattr(b, k, getattr(b, k).double())
+        return b
+    emulated = None
+    if rank == 0:
+        emulated = _emulated_step(model, config, [batch_of(r) for r in range(world)],
+                                  [distributed.rank_generator(DP_SEED, r, dev)
+                                   for r in range(world)])
+    gen = distributed.rank_generator(DP_SEED, rank, dev)
+    m = make_dp_train_step(config, uniform_from(gen))(
+        create_train_state(model, config, gen), batch_of(rank))
+    out = {"digest": _state_digest(model)}
+    if emulated is not None:
+        got = (m, {n: p.grad for n, p in model.named_parameters()},
+               {k: v for k, v in model.state_dict().items() if "running_" in k},
+               {k: v for k, v in model.state_dict().items()
+                if "running_" not in k and "num_batches" not in k})
+        out["emulation"] = _dp_compare(got, [emulated], 1e-9)
+    return out
+
+
+def _leaf_errors(got, parts: list) -> dict:
+    """Each output tensor of ``got`` against the concatenation of its leaves in
+    ``parts`` (one process's outputs): the largest float error relative to
+    the tensor's scale, and whether every other tensor is identical."""
+    import torch
+
+    from meshrcnn_tpu_torch.parallel import distributed
+    worst, name, exact = 0.0, None, True
+    leaves = distributed.tensor_leaves(got, [])
+    for i, a in enumerate(leaves):
+        b = torch.cat([p[i] for p in parts]) if len(parts) > 1 else parts[0][i]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            exact = False
+        elif a.is_floating_point():
+            err = ((a.double() - b.double()).abs().max()
+                   / b.double().abs().max().clamp(min=1.0)).item() if a.numel() else 0.0
+            if err >= worst:
+                worst, name = err, i
+        else:
+            exact = exact and torch.equal(a, b)
+    return {"leaves": len(leaves), "worst": worst, "worst_leaf": name, "exact": exact}
+
+
+def _dp_eval_case(kind: str, rank: int, world: int, dev, timing_only: bool) -> dict:
+    """DP eval of the full-width recipe of ``kind`` (bench batch a rank): the
+    gathered outputs against the one-process eval of the whole batch (rank
+    0), then two global batches through ``validate`` / ``validate_pix3d`` with
+    a ``shard_fn`` and the kernel launches of each rank."""
+    import torch
+
+    from meshrcnn_tpu_torch import harness
+    from meshrcnn_tpu_torch.ops.sampling import uniform_from
+    from meshrcnn_tpu_torch.parallel import distributed
+    from meshrcnn_tpu_torch.parallel.train_step import make_dp_eval_step, make_eval_step
+    if kind == "ShapeNet":
+        model, config, _ = harness.shapenet_bench_setup(0, dev)
+        per, make, fn, classes = 3, harness.SyntheticBatch, harness.validate, 13
+    else:
+        model, config, _ = harness.pix3d_bench_setup(0, dev)
+        per, make, fn, classes = 4, harness.SyntheticPix3DBatch, harness.validate_pix3d, 10
+    rng = np.random.RandomState(8)
+    batches = [make(rng, B=per * world) for _ in range(2)]
+    images = torch.from_numpy(distributed.shard_batch(batches[0], rank, world).images).to(dev)
+    got = make_dp_eval_step(model)(images)
+    out = {}
+    if rank == 0:
+        step = make_eval_step(model)
+        halves = [step(torch.from_numpy(distributed.shard_batch(batches[0], r, world).images)
+                       .to(dev)) for r in range(world)]
+        whole = step(torch.from_numpy(batches[0].images).to(dev))
+        out["halves"] = _leaf_errors(got, [distributed.tensor_leaves(h, []) for h in halves])
+        out["whole"] = _leaf_errors(got, [distributed.tensor_leaves(whole, [])])
+    _reset_counts()
+    res = fn(make_dp_eval_step(model), batches, config, classes,
+             uniform_from(torch.Generator(device=dev).manual_seed(DP_SEED)), device=dev,
+             print_freq=10 ** 9, shard_fn=lambda b: distributed.shard_batch(b, rank, world))
+    torch.cuda.synchronize()
+    out["counts"] = _counts()
+    out["metrics"] = None if res is None else {k: float(v) for k, v in res.items()
+                                               if k != "confusion"}
+    return out
+
+
+_DP_CASES = {
+    "ShapeNet train": lambda *a: _dp_train_case("ShapeNet", *a),
+    "Pix3D train": lambda *a: _dp_train_case("Pix3D", *a),
+    "float64 step": _dp_f64_case,
+    "ShapeNet eval": lambda *a: _dp_eval_case("ShapeNet", *a),
+    "Pix3D eval": lambda *a: _dp_eval_case("Pix3D", *a),
+}
+
+
+def _dp_rank(rank: int, world: int, backend: str, store: str, out: str, cases: list,
+             timing_only: bool) -> None:
+    """One spawned rank: join the group, run each case, pickle the results."""
+    import os
+    import pickle
+
+    import torch
+
+    from meshrcnn_tpu_torch.parallel import distributed
+    dev = torch.device(f"cuda:{rank if backend == 'nccl' else 0}")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(backend, rank=rank, world_size=world,
+                                         init_method=f"file://{store}")
+    try:
+        results = {name: _DP_CASES[name](rank, world, dev, timing_only) for name in cases}
+    finally:
+        distributed.destroy()
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def _dp_spawn(world: int, backend: str, cases: list, timing_only: bool = False) -> list:
+    import os
+    import pickle
+
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.spawn(_dp_rank, nprocs=world, args=(
+            world, backend, os.path.join(tmp, "store"), tmp, cases, timing_only))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _dp_check(tag: str, ranks: list, kernels) -> None:
+    """(a)'s checks of the ranks' results; adds their K1 launches to ``kernels``."""
+    world = len(ranks)
+    k1 = 0
+    for kind in ("ShapeNet train", "Pix3D train"):
+        r0 = ranks[0][kind]
+        for i in range(DP_STEPS):
+            digests = {r[kind]["digests"][i] for r in ranks}
+            if len(digests) != 1:
+                _fail(f"{tag} {kind}: the ranks' states differ after step {i}")
+            for r, res in enumerate(ranks):
+                c = res[kind]["counts"][i]
+                if c != {"chamfer_nn_bidir": 3, "knn_topk_batched": 0, "chamfer_sums_fused": 0,
+                         "knn_topk": 0}:
+                    _fail(f"{tag} {kind}: rank {r} launched {c} in step {i}, want K1 x 3")
+                k1 += c["chamfer_nn_bidir"]
+                m = res[kind]["metrics"][i]
+                if not all(np.isfinite(v) for v in m.values()) or m["grads_finite"] != 1.0:
+                    _fail(f"{tag} {kind}: rank {r} step {i} has a non-finite metric")
+        for name, (d, spread, scale, floor) in r0["emulation"].items():
+            print(f"[dp] {tag} {kind} step 0 against its one-process emulation: {name} "
+                  f"{d:.3e} (card spread {spread:.3e}, scale {scale:.3e})")
+            if not d <= 4.0 * spread + floor * max(scale, 1.0):
+                _fail(f"{tag} {kind}: the DP step's {name} differ from the emulation")
+        print(f"[dp] {tag} {kind}: {world} ranks x {DP_STEPS} steps equal in every bit "
+              f"(sha256 {r0['digests'][-1][:16]}); K1 x 3 a rank a step; metrics "
+              f"{json.dumps(r0['metrics'][-1])}")
+    f64 = ranks[0]["float64 step"]
+    if len({r["float64 step"]["digest"] for r in ranks}) != 1:
+        _fail(f"{tag}: the float64 ranks' states differ")
+    for name, (d, _, scale, floor) in f64["emulation"].items():
+        print(f"[dp] {tag} float64 tiny Pix3D step against its emulation: {name} "
+              f"{d / max(scale, 1.0):.3e} of scale")
+        if not d <= floor * max(scale, 1.0):
+            _fail(f"{tag}: the float64 DP step's {name} differ from the emulation")
+    for kind, per_batch in (("ShapeNet eval", 4), ("Pix3D eval", 5)):
+        r0 = ranks[0][kind]
+        h, w = r0["halves"], r0["whole"]
+        print(f"[dp] {tag} {kind}: gathered {h['leaves']} output tensors against one "
+              f"process's eval of the batch in the ranks' halves: worst float {h['worst']:.3e} "
+              f"of scale (tensor {h['worst_leaf']}), others "
+              f"{'identical' if h['exact'] else 'DIFFERENT'}; against its eval of the whole "
+              f"batch in one forward: {w['worst']:.3e} (tensor {w['worst_leaf']}), others "
+              f"{'identical' if w['exact'] else 'different'}; validate metrics "
+              f"{json.dumps(r0['metrics'])}")
+        if not (h["exact"] and h["worst"] <= 1e-4):
+            _fail(f"{tag} {kind}: the gathered outputs differ from the one-process eval")
+        if not all(np.isfinite(v) for v in r0["metrics"].values()):
+            _fail(f"{tag} {kind}: a non-finite metric")
+        for r, res in enumerate(ranks):
+            want = 2 * per_batch if r == 0 else 0
+            c = res[kind]["counts"]
+            if c["chamfer_nn_bidir"] != want or sum(c.values()) != want:
+                _fail(f"{tag} {kind}: rank {r} launched {c}, want K1 x {want}")
+            if r and res[kind]["metrics"] is not None:
+                _fail(f"{tag} {kind}: rank {r} returned metrics")
+            k1 += c["chamfer_nn_bidir"]
+    kernels["chamfer_nn_bidir"]["launches"] += k1
+
+
+def _dp_timing(ranks: list) -> dict:
+    """Steady ms/step (the steps after the first) and all-reduce ms a step, of rank 0."""
+    out = {}
+    for kind in ("ShapeNet train", "Pix3D train"):
+        r = ranks[0][kind]
+        out[kind] = (float(np.mean(r["ms"][1:])), float(np.mean(r["reduce_ms"][1:])))
+    return out
+
+
+def _dp_cli_nccl(kernels, root: str) -> None:
+    """(b): ``python -m meshrcnn_tpu_torch.train --multihost`` in this process
+    as rank 0 of a world of one, as torchrun would start it: NCCL set up, its
+    all-reduce in every step, rank 0's checkpoint behind a barrier, reloaded
+    equal in every bit."""
+    import os
+    import socket
+
+    import torch
+
+    from meshrcnn_tpu_torch import train
+    from meshrcnn_tpu_torch.parallel import distributed
+    from meshrcnn_tpu_torch.parallel.train_step import create_train_state
+    from meshrcnn_tpu_torch.utils import cli
+    from meshrcnn_tpu_torch.utils.checkpoint import load_state
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    backends = []
+    real_init = distributed.init_from_env
+
+    def recording(backend):
+        real_init(backend)
+        backends.append(torch.distributed.get_backend())
+    flags = ["--model", "ShapeNet", "--residual", "-b", "3", "--num_sampels", "6",
+             "--synthetic_size", "9", "--nEpoch", "1", "--point_cloud_size", "10000",
+             "--workers", "2", "--print_freq", "1000", "--checkpoint_root",
+             os.path.join(root, "dp_nccl")]
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    distributed.init_from_env = recording
+    _reset_counts()
+    try:
+        out = train.main(flags + ["--multihost"])
+    finally:
+        distributed.init_from_env = real_init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    counts = _counts()
+    state = out["state"]
+    options = train.parser.parse_args(flags)
+    dev = torch.device("cuda")
+    settings = train.model_settings(options, dev)
+    fresh = create_train_state(cli.build_model(settings, dev), train.train_config(options),
+                               torch.Generator(device=dev).manual_seed(123))
+    load_state(out["final"], fresh, settings)
+    differ = _same_state(state, fresh)
+    print(f"[dp] NCCL through the train CLI (--multihost, world 1): backend {backends}, "
+          f"{state.step} steps, grads_finite {out['meters']['grads_finite'].history}, "
+          f"launches {counts}; checkpoint reloaded, differing: {differ or 'none'}")
+    if backends != ["nccl"] or state.step != 2 or differ:
+        _fail("the NCCL CLI run did not use NCCL, take 2 steps or reload its checkpoint")
+    if counts["chamfer_nn_bidir"] != 6 or sum(counts.values()) != 6:
+        _fail(f"the NCCL CLI run launched {counts}, want K1 x 6")
+    kernels["chamfer_nn_bidir"]["launches"] += counts["chamfer_nn_bidir"]
+    n = torch.cuda.device_count()
+    if n >= 2:                 # --num_devices: one spawned NCCL rank a card
+        flags[flags.index("-b") + 1] = str(3 * n)
+        flags[flags.index("--num_sampels") + 1] = str(6 * n)
+        flags[flags.index("--synthetic_size") + 1] = str(9 * n)
+        out = train.main(flags + ["--num_devices", str(n)])
+        ckpt = torch.load(out["final"], map_location="cpu", weights_only=True)
+        print(f"[dp] the train CLI with --num_devices {n}: checkpoint of world "
+              f"{ckpt['world_size']}, step {ckpt['step']}, {len(ckpt['generators'])} "
+              f"generators; grads_finite {out['meters']['grads_finite'].history}")
+        if (ckpt["world_size"], ckpt["step"], len(ckpt["generators"])) != (n, 2, n) or \
+                out["meters"]["grads_finite"].history != [1.0]:
+            _fail(f"the train CLI on {n} NCCL ranks did not take 2 steps on {n} ranks")
+
+
+def phase_dp(kernels, card: str, root: str):
+    """Data parallelism (``make_dp_train_step``, ``make_dp_eval_step``, the
+    CLIs' ``--num_devices`` / ``--multihost``):
+      (a) two gloo ranks spawned on one card (gloo is the backend that lets
+          two ranks share a card: a test configuration). ShapeNet train at
+          the bench recipe, 3 images a rank, and Pix3D train, 4 a rank, 3
+          steps each: the ranks' states equal in every bit after every step,
+          K1 x 3 a rank a step, the first step against its one-process
+          emulation on the card within 4x the card's own spread (a repeated
+          emulation and one on images scaled by 1 + 1e-6) plus 1e-4 of scale;
+          the tiny Pix3D step in float64 at 1e-9 of scale; DP eval of both
+          models, the gathered outputs within 1e-4 of one process's eval of
+          the same batch in the ranks' halves, integer outputs identical (the
+          eval of the whole batch in one forward is printed beside it: cuDNN
+          picks its bfloat16 algorithms by batch size), then two batches of
+          ``validate`` / ``validate_pix3d`` with a ``shard_fn`` (K1 x 4 / x 5
+          a batch on rank 0 only);
+      (b) NCCL through the train CLI as rank 0 of a world of one
+          (``--multihost``); with two or more cards also (a) on two NCCL ranks
+          and the CLI with ``--num_devices`` = every card;
+      (c) ms/step of one and of two ranks, and the all-reduce's ms a step."""
+    import torch
+    two = _dp_spawn(2, "gloo", list(_DP_CASES))
+    _dp_check("gloo x 2 on one card", two, kernels)
+    one = _dp_spawn(1, "gloo", ["ShapeNet train", "Pix3D train"], timing_only=True)
+    for kind in ("ShapeNet train", "Pix3D train"):
+        kernels["chamfer_nn_bidir"]["launches"] += sum(
+            c["chamfer_nn_bidir"] for c in one[0][kind]["counts"])
+    _dp_cli_nccl(kernels, root)
+    t1, t2 = _dp_timing(one), _dp_timing(two)
+    print(f"[dp] {card}: " + "; ".join(
+        f"{kind} {t1[kind][0]:.2f} ms/step on 1 rank ({t1[kind][1]:.3f} ms all-reduce), "
+        f"{t2[kind][0]:.2f} ms/step on 2 gloo ranks sharing the card ({t2[kind][1]:.3f} ms "
+        f"all-reduce, {t2[kind][1] / t2[kind][0]:.1%} of the step)" for kind in t1))
+    if torch.cuda.device_count() >= 2:
+        nccl = _dp_spawn(2, "nccl", list(_DP_CASES))
+        _dp_check("nccl x 2", nccl, kernels)
+        t = _dp_timing(nccl)
+        print(f"[dp] {card}: " + "; ".join(
+            f"{kind} {t[kind][0]:.2f} ms/step on 2 NCCL ranks, a card each ({t[kind][1]:.3f} "
+            f"ms all-reduce, {t[kind][1] / t[kind][0]:.1%} of the step)" for kind in t))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1564,6 +2060,7 @@ def main() -> None:
     timed(phase_single, kernels)
     with tempfile.TemporaryDirectory() as root:
         timed(phase_cli, kernels, root)
+        timed(phase_dp, kernels, card, root)
     timed(phase_small_card_vs_cpu)
     timed(phase_small_pix3d_card_vs_cpu)
     timed(phase_small_train_card_vs_cpu)

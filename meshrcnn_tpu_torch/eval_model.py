@@ -11,8 +11,13 @@ the JAX ``validate_pix3d`` has it). Pickles the metrics, ``confusion``
 included, to ``<output_path>/metrics_<model>.st``. Runs on the card unless
 ``--device cpu``; without a card it raises.
 
-The JAX CLI's ``--split_eval`` (a TPU workaround) and ``--num_devices`` are
-not here.
+Data-parallel eval, as the JAX CLI has it: ``--num_devices N`` (default 1)
+spawns N ranks, one process and one card each (NCCL; gloo on the CPU), and
+``--multihost`` joins the ranks ``torchrun`` started. ``--batchSize`` is the
+global batch and must divide by N; each rank runs the forward on its rows,
+the outputs are gathered along the batch (``make_dp_eval_step``) and rank 0
+computes the metrics of the whole batch and writes them. The JAX CLI's
+``--split_eval`` (a TPU workaround) is not here.
 """
 from __future__ import annotations
 
@@ -28,12 +33,16 @@ from meshrcnn_tpu_torch.core.config import TrainConfig
 from meshrcnn_tpu_torch.data.datasets import dataLoader
 from meshrcnn_tpu_torch.harness import validate, validate_pix3d
 from meshrcnn_tpu_torch.ops.sampling import Uniform, uniform_from
-from meshrcnn_tpu_torch.parallel.train_step import create_train_state, make_eval_step
+from meshrcnn_tpu_torch.parallel import distributed
+from meshrcnn_tpu_torch.parallel.train_step import (create_train_state, make_dp_eval_step,
+                                                    make_eval_step)
 from meshrcnn_tpu_torch.utils import cli
 from meshrcnn_tpu_torch.utils.checkpoint import load_state, load_state_partial
+from meshrcnn_tpu_torch.utils.meters import safe_print
 
 parser = argparse.ArgumentParser(description="dataset evaluation script")
 cli.add_model_flags(parser)
+cli.add_parallel_flags(parser, "1")
 parser.add_argument("--model_path", type=str, default="",
                     help="checkpoint of meshrcnn_tpu_torch.train to evaluate")
 parser.add_argument("--synthetic_size", type=int, default=64,
@@ -50,8 +59,11 @@ def main(argv=None, uniform: Optional[Uniform] = None) -> dict:
     metrics' point-cloud draws; by default a generator on the device seeded
     from ``TrainConfig.seed``. Returns the metrics, with ``path`` the file
     they were written to."""
-    options = parser.parse_args(argv)
-    device = cli.device_of(options.device)
+    return cli.run_ranks(_evaluate, parser.parse_args(argv), 1, uniform)
+
+
+def _evaluate(options, device: torch.device, uniform: Optional[Uniform]) -> Optional[dict]:
+    """The evaluation of one rank; rank 0's returns the metrics, the others None."""
     is_pix3d = options.model == "Pix3D"
     num_classes = 10 if is_pix3d else 13
     config = TrainConfig(point_cloud_size=options.point_cloud_size,
@@ -75,23 +87,31 @@ def main(argv=None, uniform: Optional[Uniform] = None) -> dict:
         state = create_train_state(model, config)
         try:
             load_state(options.model_path, state, settings)
-            print(f"loaded checkpoint {options.model_path}")
+            safe_print(f"loaded checkpoint {options.model_path}")
         except (ValueError, RuntimeError, KeyError) as err:
             # another optimizer structure (e.g. a checkpoint trained with
             # --train_backbone): eval reads only the model's entries
             n_loaded, n_total = load_state_partial(options.model_path, state, settings)
-            print(f"partially loaded checkpoint {options.model_path} "
-                  f"({n_loaded}/{n_total} parameters): {err}")
+            safe_print(f"partially loaded checkpoint {options.model_path} "
+                       f"({n_loaded}/{n_total} parameters): {err}")
             if n_loaded < n_total:
-                print("warning: some parameters of the model were not in the "
-                      "checkpoint (a voxel-only checkpoint into a full model?)")
+                safe_print("warning: some parameters of the model were not in the "
+                           "checkpoint (a voxel-only checkpoint into a full model?)")
 
     if uniform is None:
         uniform = uniform_from(torch.Generator(device=device).manual_seed(config.seed))
+    if distributed.active():
+        rank, world = distributed.rank(), distributed.world()
+        eval_step = make_dp_eval_step(model)
+        shard_fn = lambda batch: distributed.shard_batch(batch, rank, world)  # noqa: E731
+    else:
+        eval_step, shard_fn = make_eval_step(model), None
     validate_fn = validate_pix3d if is_pix3d else validate
-    results = validate_fn(make_eval_step(model), loader, config, num_classes, uniform,
-                          device=device, voxel_only=options.voxel_only,
-                          print_freq=options.print_freq)
+    results = validate_fn(eval_step, loader, config, num_classes, uniform, device=device,
+                          voxel_only=options.voxel_only, print_freq=options.print_freq,
+                          shard_fn=shard_fn)
+    if results is None:               # a rank but the first
+        return None
     print({k: v for k, v in results.items() if k != "confusion"})
 
     os.makedirs(options.output_path, exist_ok=True)

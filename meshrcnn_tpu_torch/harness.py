@@ -13,12 +13,20 @@ both clouds of each stage through K3 for their kNN + PCA normals (six launches).
 ``pix3d_eval_metrics`` (best-IoU detection, AP_box / AP_mask, ranked AP), five
 K1 launches a batch with ranked AP: the four above plus one for the mesh F1 of
 every detection slot.
+
+Under data parallelism each loop takes a ``shard_fn``, as JAX's do, which
+gives the rank its rows of each global batch (``distributed.shard_batch``):
+``train_epoch`` runs the rank's step on them (its metrics are already the
+ranks' means), the eval loops run the rank's forward on them and gather the
+outputs (``make_dp_eval_step``); then rank 0 alone computes the metrics, ranked
+AP included, once from the whole batch, and the other ranks return None.
+Progress lines print on rank 0 only.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +39,7 @@ from meshrcnn_tpu_torch.ops.boxes import box_iou
 from meshrcnn_tpu_torch.ops.chamfer_cuda import nn_bidir
 from meshrcnn_tpu_torch.ops.losses import batched_mesh_loss, voxel_loss
 from meshrcnn_tpu_torch.ops.sampling import Uniform, batched_sample_points
+from meshrcnn_tpu_torch.parallel import distributed
 from meshrcnn_tpu_torch.parallel.train_step import Batch, TrainState
 from meshrcnn_tpu_torch.utils.meters import AverageMeter, ProgressMeter, gcn_metrics
 from meshrcnn_tpu_torch.utils.metrics import (detection_map, f_score, mesh_precision_recall,
@@ -156,20 +165,34 @@ def _book_step_time(meters: Dict[str, AverageMeter], dt: float) -> None:
     meters["batch_time"].update(dt)
 
 
+def _sharded(loader, shard_fn: Optional[Callable]) -> Callable:
+    """``shard_fn``, or the identity; a data-parallel loop refuses a loader
+    that keeps a short last batch, which would not split over the ranks."""
+    if shard_fn is None:
+        return lambda batch: batch
+    if not getattr(loader, "drop_last", True):
+        raise ValueError("a data-parallel loop needs a loader with drop_last=True: a short "
+                         "last batch does not split over the ranks")
+    return shard_fn
+
+
 def train_epoch(epoch: int, step_fn: Callable[[TrainState, Batch], Dict[str, torch.Tensor]],
                 state: TrainState, loader: Iterable, meters: Dict[str, AverageMeter],
-                device: torch.device | str = "cuda", print_freq: int = 10):
+                device: torch.device | str = "cuda", print_freq: int = 10,
+                shard_fn: Optional[Callable] = None):
     """One training epoch over numpy batches, one train step each (counterpart
     of ``harness.train_epoch`` without its multi-step dispatch; reference:
     train_utils.py:174-250). A Pix3D batch carries ``boxes`` and ``masks``,
-    which ``Batch.from_host`` copies. Every metric of the step goes to a meter of its
+    which ``Batch.from_host`` copies; ``shard_fn`` takes a data-parallel
+    rank's rows first. Every metric of the step goes to a meter of its
     name; the first step of a run is booked as ``warmup_time``; every
     ``print_freq`` steps ``ProgressMeter`` prints the meters given. Returns
     (state, meters) after ``epoch_end`` on every meter."""
+    shard = _sharded(loader, shard_fn)
     progress = ProgressMeter(len(loader), meters.values(), prefix=f"Epoch: [{epoch}]")
     end = time.time()
     for i, batch in enumerate(_timed_iter(loader, meters["data_loading"])):
-        metrics = step_fn(state, Batch.from_host(batch, device))
+        metrics = step_fn(state, Batch.from_host(shard(batch), device))
         values = torch.stack(list(metrics.values())).tolist()     # one copy to the host
         for k, v in zip(metrics, values):
             if k not in meters:
@@ -259,7 +282,8 @@ def shapenet_eval_metrics(out: ShapeNetOutput, gt_vox, gt_verts, gt_faces,
 def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterable,
              config: TrainConfig, num_classes: int, uniform: Uniform,
              device: torch.device | str = "cuda", voxel_only: bool = False,
-             f1_taus: Sequence[float] = (0.1, 0.3), print_freq: int = 10) -> dict:
+             f1_taus: Sequence[float] = (0.1, 0.3), print_freq: int = 10,
+             shard_fn: Optional[Callable] = None) -> Optional[dict]:
     """Dataset evaluation over numpy batches (counterpart of ``harness.validate``).
 
     A batch has ``images`` [B,H,W,3], ``voxels``, ``gt_verts``, ``gt_faces``,
@@ -267,8 +291,11 @@ def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterab
     losses, ``voxel_iou``, the confusion-based ``f0_1``/``f0_3``/``f0_5``,
     point-cloud ``F1@tau`` and the ``confusion`` matrix, plus timing meters.
     The normal metric uses ``config.face_normals``, ``normal_k`` and
-    ``distance_tile``.
+    ``distance_tile``. With ``shard_fn`` (data parallelism, see the module
+    note) only rank 0 computes and returns the metrics.
     """
+    shard = _sharded(loader, shard_fn)
+    main = shard_fn is None or distributed.rank() == 0
     meters = gcn_metrics(voxel_only)
     meters["voxel_iou"] = AverageMeter("voxel_iou")
     confusion = np.zeros((num_classes, num_classes), dtype=np.int64)
@@ -281,7 +308,9 @@ def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterab
         return torch.from_numpy(np.array(x)).to(device)
 
     for i, batch in enumerate(_timed_iter(loader, meters["data_loading"])):
-        out = eval_step(dev(batch.images))
+        out = eval_step(dev(shard(batch).images))
+        if not main:
+            continue
         m = shapenet_eval_metrics(out, dev(batch.voxels), dev(batch.gt_verts),
                                   dev(batch.gt_faces), dev(batch.gt_faces_mask),
                                   config.point_cloud_size, uniform, taus, voxel_only,
@@ -303,6 +332,8 @@ def validate(eval_step: Callable[[torch.Tensor], ShapeNetOutput], loader: Iterab
         end = time.time()
         if i % print_freq == 0:
             print(f"eval [{i}/{len(loader)}] voxel {meters['voxel_loss'].avg:.4f}")
+    if not main:
+        return None
 
     results = {k: m.avg for k, m in meters.items()}
     for beta, name in ((0.1, "f0_1"), (0.3, "f0_3"), (0.5, "f0_5")):
@@ -391,7 +422,8 @@ def validate_pix3d(eval_step: Callable[[torch.Tensor], Pix3DOutput], loader: Ite
                    config: TrainConfig, num_classes: int, uniform: Uniform,
                    device: torch.device | str = "cuda", voxel_only: bool = False,
                    f1_taus: Sequence[float] = (0.1, 0.3), print_freq: int = 10,
-                   ranked_ap: bool = True) -> dict:
+                   ranked_ap: bool = True, shard_fn: Optional[Callable] = None
+                   ) -> Optional[dict]:
     """Pix3D dataset evaluation over numpy batches (counterpart of
     ``harness.validate_pix3d``; reference: eval_utils.py:93-194).
 
@@ -402,7 +434,11 @@ def validate_pix3d(eval_step: Callable[[torch.Tensor], Pix3DOutput], loader: Ite
     f0_5, AP_mesh (AUC over the confusion), point-cloud F1@tau, the
     ``confusion`` matrix and timing meters; with ``ranked_ap`` also class-mean
     score-ranked AP50_box, AP50_mask and AP_mesh_ranked (mesh F1@0.3 > 0.5).
+    With ``shard_fn`` (data parallelism, see the module note) only rank 0
+    computes and returns the metrics.
     """
+    shard = _sharded(loader, shard_fn)
+    main = shard_fn is None or distributed.rank() == 0
     meters = gcn_metrics(voxel_only)
     meters["voxel_iou"] = AverageMeter("voxel_iou")
     for k in ("AP_box", "AP_mask"):
@@ -421,7 +457,9 @@ def validate_pix3d(eval_step: Callable[[torch.Tensor], Pix3DOutput], loader: Ite
         return torch.from_numpy(np.array(x)).to(device)
 
     for i, batch in enumerate(_timed_iter(loader, meters["data_loading"])):
-        out = eval_step(dev(batch.images))
+        out = eval_step(dev(shard(batch).images))
+        if not main:
+            continue
         m = pix3d_eval_metrics(out, dev(batch.boxes), dev(batch.masks), dev(batch.voxels),
                                dev(batch.gt_verts), dev(batch.gt_faces),
                                dev(batch.gt_faces_mask), config.point_cloud_size, uniform,
@@ -458,6 +496,8 @@ def validate_pix3d(eval_step: Callable[[torch.Tensor], Pix3DOutput], loader: Ite
         end = time.time()
         if i % print_freq == 0:
             print(f"pix3d eval [{i}/{len(loader)}] AP_box {meters['AP_box'].avg:.3f}")
+    if not main:
+        return None
 
     results = {k: m.avg for k, m in meters.items()}
     for beta, name in ((0.1, "f0_1"), (0.3, "f0_3"), (0.5, "f0_5")):

@@ -1,6 +1,6 @@
-"""Train and eval steps of the ShapeNet and Pix3D models (counterpart of
-meshrcnn_tpu/parallel/train_step.py, single device; data parallelism is a
-later slice).
+"""Train and eval steps of the ShapeNet and Pix3D models, on one device and
+data-parallel (counterpart of meshrcnn_tpu/parallel/train_step.py; its
+``make_multi_step`` and split eval are not ported).
 
 The JAX step is a pure function of (params, batch_stats, opt_state); here the
 model and optimizer are updated in place, and the mapping is:
@@ -12,7 +12,12 @@ model and optimizer are updated in place, and the mapping is:
     non-finite check reads, as JAX's ``tree_leaves(grads)`` does;
   * the Pix3D schedule is a ``LambdaLR`` of the same function of the step;
   * a non-finite loss or gradient skips ``optimizer.step()`` and restores the
-    BatchNorm buffers, which the forward has already updated in place.
+    BatchNorm buffers, which the forward has already updated in place;
+  * JAX's ``shard_map`` over the ``dp`` axis is one process a rank
+    (``parallel/distributed.py``): ``make_dp_train_step`` takes the mean over
+    the ranks of the gradients, loss, metrics and BN running statistics
+    before the non-finite check, ``make_dp_eval_step`` concatenates the
+    ranks' outputs along the batch.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from meshrcnn_tpu_torch.models.pix3d import Pix3DModel, Pix3DOutput
 from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel, ShapeNetOutput
 from meshrcnn_tpu_torch.ops.losses import batched_mesh_loss, voxel_loss
 from meshrcnn_tpu_torch.ops.sampling import Uniform
+from meshrcnn_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass
@@ -210,6 +216,28 @@ def make_train_step(config: TrainConfig, uniform: Uniform
     in full float32 (TF32 off, process-wide PyTorch flags). ``step`` counts
     every call, skipped or not, as the JAX state's does.
     """
+    return _make_step(config, uniform, dp=False)
+
+
+def make_dp_train_step(config: TrainConfig, uniform: Uniform, group=None
+                       ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    """The train step of one rank of a data-parallel group (JAX
+    ``make_dp_train_step``: ``make_train_step(axis_name="dp")`` under
+    ``shard_map``). The rank runs ``make_train_step``'s forward, loss and
+    backward on its rows of the batch, drawing from ``uniform``, its own
+    source (JAX: ``fold_in(key, axis_index)``); then one coalesced mean over
+    the ranks (``distributed.all_reduce_mean``) of every parameter's gradient
+    (zero where a parameter got none), the loss, every metric and every
+    floating-point BN running buffer (``num_batches_tracked`` is the same on
+    every rank), as JAX ``pmean``s them. BatchNorm normalises each rank's
+    rows by their own statistics, as no flax ``BatchNorm`` of the JAX models
+    has an ``axis_name``. The non-finite check reads the means, so every rank
+    skips or updates alike, and the ranks' parameters stay equal in every bit.
+    """
+    return _make_step(config, uniform, dp=True, group=group)
+
+
+def _make_step(config: TrainConfig, uniform: Uniform, dp: bool, group=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -225,6 +253,9 @@ def make_train_step(config: TrainConfig, uniform: Uniform
         total, metrics = loss_fn(model, config, batch, uniform)
         with record_function("train/backward"):
             total.backward()
+        if dp:
+            with record_function("train/all-reduce"):
+                total = _reduce(model, params, metrics, group)
         ok = True
         if config.skip_nonfinite:
             with record_function("train/finite check"):
@@ -240,6 +271,21 @@ def make_train_step(config: TrainConfig, uniform: Uniform
         return metrics
 
     return step
+
+
+def _reduce(model: torch.nn.Module, params: List[torch.nn.Parameter],
+            metrics: Dict[str, torch.Tensor], group) -> torch.Tensor:
+    """The mean over the ranks of the gradients, metrics (the loss among
+    them) and BN running statistics, in place, in one coalesced all-reduce a
+    dtype; returns the mean loss."""
+    for p in params:        # JAX's pmean covers every leaf of the gradient tree
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    stats = [b for name, b in model.named_buffers()
+             if b.is_floating_point() and not name.endswith("num_batches_tracked")]
+    distributed.all_reduce_mean([p.grad for p in params] + list(metrics.values()) + stats,
+                                group)
+    return metrics["loss"]
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor], Any]:
@@ -259,3 +305,18 @@ def make_eval_step(model: torch.nn.Module) -> Callable[[torch.Tensor], Any]:
         with torch.no_grad():
             return model(images)
     return step
+
+
+def make_dp_eval_step(model: torch.nn.Module, group=None) -> Callable[[torch.Tensor], Any]:
+    """The eval step of one rank of a data-parallel group (JAX ``_dp_eval`` /
+    ``make_dp_eval_step(split=False)``): ``make_eval_step``'s forward on the
+    rank's rows of the images, then every field of the output concatenated
+    along the batch over the ranks (``distributed.gather_batch``), so that
+    each rank holds the whole batch's ``ShapeNetOutput`` or ``Pix3DOutput``."""
+    step = make_eval_step(model)
+
+    def dp_step(images: torch.Tensor):
+        out = step(images)
+        with record_function("eval/gather"):
+            return distributed.gather_batch(out, group)
+    return dp_step

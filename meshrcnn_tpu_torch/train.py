@@ -13,8 +13,17 @@ checkpoint (``load_state``, else the matching entries through
 ``load_state_partial``); ``--backbone_path`` loads a torchvision ResNet-50 or
 ``maskrcnn_resnet50_fpn`` state dict, or a checkpoint of this CLI.
 
-The JAX CLI's ``--num_devices``, ``--multihost`` and ``--steps_per_dispatch``
-are not here: data parallelism and multi-step dispatch are not ported yet.
+Data parallelism, as the JAX CLI has it: ``--num_devices N`` (default every
+visible card; one on the CPU) spawns N ranks, one process and one card each,
+NCCL on the card and gloo on the CPU; ``--multihost`` joins the ranks
+``torchrun`` started:
+
+    torchrun --nproc_per_node 4 -m meshrcnn_tpu_torch.train --multihost --model ShapeNet ...
+
+``--batchSize`` is the global batch; each rank takes its rows of it and runs
+``make_dp_train_step``. Rank 0 prints and writes the checkpoints and stats.
+One rank without ``--multihost`` runs the single-card step. The JAX CLI's
+``--steps_per_dispatch`` (multi-step dispatch) is not ported.
 """
 from __future__ import annotations
 
@@ -27,15 +36,18 @@ from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
 from meshrcnn_tpu_torch.data.datasets import dataLoader
 from meshrcnn_tpu_torch.harness import train_epoch
 from meshrcnn_tpu_torch.ops.sampling import uniform_from
-from meshrcnn_tpu_torch.parallel.train_step import create_train_state, make_train_step
+from meshrcnn_tpu_torch.parallel import distributed
+from meshrcnn_tpu_torch.parallel.train_step import (create_train_state, make_dp_train_step,
+                                                    make_train_step)
 from meshrcnn_tpu_torch.utils import cli
 from meshrcnn_tpu_torch.utils.checkpoint import (checkpoint_dir, load_state,
                                                  load_state_partial, save_state)
-from meshrcnn_tpu_torch.utils.meters import gcn_metrics, save_stats
+from meshrcnn_tpu_torch.utils.meters import gcn_metrics, safe_print, save_stats
 from meshrcnn_tpu_torch.utils.torch_convert import load_backbone
 
 parser = argparse.ArgumentParser(description="GCN training script")
 cli.add_model_flags(parser)
+cli.add_parallel_flags(parser, "every visible card; 1 on the CPU")
 parser.add_argument("--model_path", default="",
                     help="checkpoint of this CLI to continue training from")
 parser.add_argument("--backbone_path", "-bp", type=str, default="",
@@ -97,12 +109,20 @@ def model_settings(options, device) -> dict:
 def main(argv=None) -> dict:
     """Train as the flags in ``argv`` say. Returns what it wrote: ``dir``, the
     ``checkpoints`` and ``stats`` of each epoch and the ``final`` checkpoint,
-    with the final train ``state`` and the ``meters``."""
+    with the ``meters`` and, unless the ranks were spawned, the final train
+    ``state``."""
     options = parser.parse_args(argv)
-    device = cli.device_of(options.device)
+    visible = torch.cuda.device_count() if options.device.startswith("cuda") else 1
+    return cli.run_ranks(_train, options, max(visible, 1))
+
+
+def _train(options, device: torch.device) -> dict:
+    """The training run of one rank (the only one without data parallelism)."""
+    dp = distributed.active()
+    rank, world = distributed.rank(), distributed.world()
     is_pix3d = options.model == "Pix3D"
-    print(f"{options.model} training on {device}, {options.nEpoch} epochs\n"
-          f"options were:\n{options}\n")
+    safe_print(f"{options.model} training on {device}, {world} rank(s), "
+               f"{options.nEpoch} epochs\noptions were:\n{options}\n")
     config = train_config(options)
 
     dataset = cli.dataset_of(options, is_pix3d, max(options.synthetic_size
@@ -118,40 +138,45 @@ def main(argv=None) -> dict:
     loader.rng.shuffle(list(loader.indices))
 
     settings = model_settings(options, device)
-    torch.manual_seed(config.seed)
+    torch.manual_seed(config.seed)          # the same initial weights on every rank
     model = cli.build_model(settings, device)
-    generator = torch.Generator(device=device).manual_seed(config.seed)
+    generator = distributed.rank_generator(config.seed, rank, device)
     state = create_train_state(model, config, generator)
     if options.model_path:
         try:
             load_state(options.model_path, state, settings)
-            print(f"loaded checkpoint {options.model_path} at step {state.step}")
+            safe_print(f"loaded checkpoint {options.model_path} at step {state.step}")
         except (ValueError, RuntimeError, KeyError) as err:
             # another structure (a voxel-only checkpoint into the full model,
             # another optimizer): merge the matching entries, fresh optimizer
             n_loaded, n_total = load_state_partial(options.model_path, state, settings)
-            print(f"partially loaded checkpoint {options.model_path} "
-                  f"({n_loaded}/{n_total} parameters): {err}")
+            safe_print(f"partially loaded checkpoint {options.model_path} "
+                       f"({n_loaded}/{n_total} parameters): {err}")
     elif options.backbone_path:
         n_loaded, n_fresh = load_backbone(model, options.backbone_path, maskrcnn=is_pix3d)
-        print(f"loaded backbone {options.backbone_path}: {n_loaded} tensors, "
-              f"{n_fresh} of heads of another size left fresh")
+        safe_print(f"loaded backbone {options.backbone_path}: {n_loaded} tensors, "
+                   f"{n_fresh} of heads of another size left fresh")
 
-    step_fn = make_train_step(config, uniform_from(generator))
+    if dp:
+        step_fn = make_dp_train_step(config, uniform_from(generator))
+        shard_fn = lambda batch: distributed.shard_batch(batch, rank, world)  # noqa: E731
+    else:
+        step_fn, shard_fn = make_train_step(config, uniform_from(generator)), None
     ckpt_dir = checkpoint_dir(options.checkpoint_root, options.model)
     meters = gcn_metrics(options.voxel_only)
     written = {"dir": ckpt_dir, "checkpoints": [], "stats": []}
     for epoch in range(options.nEpoch):
         state, meters = train_epoch(epoch, step_fn, state, loader, meters, device,
-                                    print_freq=options.print_freq)
+                                    print_freq=options.print_freq, shard_fn=shard_fn)
         written["checkpoints"].append(save_state(state, os.path.join(ckpt_dir, "model"),
                                                  settings, step=epoch))
         stats = os.path.join(ckpt_dir, f"stats_{epoch}.st")
-        save_stats(meters, stats)
+        if rank == 0:
+            save_stats(meters, stats)
         written["stats"].append(stats)
-        print(f"epoch {epoch} done; checkpoint and stats saved to {ckpt_dir}")
+        safe_print(f"epoch {epoch} done; checkpoint and stats saved to {ckpt_dir}")
     written["final"] = save_state(state, os.path.join(ckpt_dir, "final"), settings)
-    print("training done")
+    safe_print("training done")
     return dict(written, state=state, meters=meters)
 
 

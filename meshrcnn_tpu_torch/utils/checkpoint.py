@@ -4,10 +4,17 @@ utils/train_utils.py:11-30, train.py:186-223).
 
 A checkpoint is one file holding plain data only, so ``torch.load`` reads it
 with ``weights_only=True``: the model ``state_dict``, the optimizer's and the
-schedule's state, the step count, the state of the generator of the step's
-uniform draws, the optimizer's class name, and ``settings``, the model config
+schedule's state, the step count, the state of each rank's generator of the
+step's uniform draws with the world size (one rank without data
+parallelism), the optimizer's class name, and ``settings``, the model config
 as a dict of primitives. The directory layout is the reference's:
 ``<root>/<Model>/GCN/<iso-date>/model_<epoch>.pt``.
+
+Under data parallelism every rank holds the same model and optimizer state;
+rank 0 writes the file while the others wait at a barrier, and every rank
+loads it onto its own device and takes its own generator's state. A train
+state with a generator resumes only at the world size that wrote it
+(``WorldSizeError``): another would not continue each rank's stream.
 
 Three settings change what the weights mean, and the loads check them against
 the caller's config: ``mesh_feature_norm`` must agree (else both loads raise;
@@ -25,7 +32,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from meshrcnn_tpu_torch.parallel import distributed
 from meshrcnn_tpu_torch.parallel.train_step import TrainState
+
+
+class WorldSizeError(Exception):
+    """A checkpoint's generators are of another number of ranks than this run's."""
 
 
 def checkpoint_dir(root: str, model_name: str) -> str:
@@ -35,20 +47,38 @@ def checkpoint_dir(root: str, model_name: str) -> str:
     return path
 
 
+def _generator_states(generator: Optional[torch.Generator], device) -> Optional[list]:
+    """Every rank's generator state, in rank order (None without a generator)."""
+    if generator is None:
+        return None
+    state = generator.get_state()
+    if distributed.world() == 1:
+        return [state]
+    rows = distributed.gather_batch(state.to(device, torch.int64)[None])
+    return [row.to("cpu", torch.uint8) for row in rows]
+
+
 def save_state(state: TrainState, path: str, settings: dict,
                step: Optional[int] = None) -> str:
     """Write ``state`` to ``<path>[_<step>].pt``; returns the file's path.
-    ``settings`` is the model config, a dict of primitives."""
+    ``settings`` is the model config, a dict of primitives. Under data
+    parallelism every rank calls it: rank 0 writes, the others wait."""
     path = os.path.abspath((path if step is None else f"{path}_{step}") + ".pt")
-    torch.save({
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "optimizer_class": type(state.optimizer).__name__,
-        "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
-        "step": state.step,
-        "generator": None if state.generator is None else state.generator.get_state(),
-        "settings": dict(settings),
-    }, path)
+    device = next(state.model.parameters()).device
+    generators = _generator_states(state.generator, device)
+    if distributed.rank() == 0:
+        torch.save({
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "optimizer_class": type(state.optimizer).__name__,
+            "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
+            "step": state.step,
+            "generators": generators,
+            "world_size": distributed.world(),
+            "settings": dict(settings),
+        }, path)
+    if distributed.world() > 1:
+        torch.distributed.barrier()
     return path
 
 
@@ -72,10 +102,17 @@ def load_state(path: str, state: TrainState, settings: dict) -> TrainState:
 
     The optimizer keeps this run's hyperparameters, as the JAX optimizer, a
     function of the config, does; under a schedule its learning rate is the
-    schedule's at the restored step. Raises ValueError when the model config
-    or the optimizer's structure differs, and RuntimeError or KeyError when the
-    model's state does not fit."""
+    schedule's at the restored step. Under data parallelism each rank takes
+    its own generator's state. Raises ValueError when the model config or the
+    optimizer's structure differs, RuntimeError or KeyError when the model's
+    state does not fit, and ``WorldSizeError`` when ``state`` has a generator
+    and the checkpoint was written by another number of ranks."""
     ckpt = _read(path, settings)
+    if state.generator is not None and ckpt["world_size"] != distributed.world():
+        raise WorldSizeError(
+            f"{path} was written by a run of {ckpt['world_size']} ranks, this run has "
+            f"{distributed.world()}: each rank's stream of uniform draws continues only at "
+            "the world size that wrote it")
     key = "voxel_only"
     if bool(ckpt["settings"].get(key, False)) != bool(settings.get(key, False)):
         raise ValueError(f"{path} has {key}={ckpt['settings'].get(key, False)}, this model "
@@ -98,8 +135,8 @@ def load_state(path: str, state: TrainState, settings: dict) -> TrainState:
                                    sched.lr_lambdas):
             group["lr"] = base * fn(sched.last_epoch)
     state.step = int(ckpt["step"])
-    if state.generator is not None and ckpt["generator"] is not None:
-        state.generator.set_state(ckpt["generator"])
+    if state.generator is not None and ckpt["generators"] is not None:
+        state.generator.set_state(ckpt["generators"][distributed.rank()])
     return state
 
 

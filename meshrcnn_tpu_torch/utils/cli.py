@@ -1,10 +1,23 @@
 """What the port's ``train`` and ``eval_model`` entry points share: the
-device rule, the dataset of ``--dataRoot``, the model config of the flags
-(the ``settings`` a checkpoint records) and the model built from it.
+device rule, data parallelism's flags and processes, the dataset of
+``--dataRoot``, the model config of the flags (the ``settings`` a checkpoint
+records) and the model built from it.
+
+Data parallelism (``--num_devices N``, ``--multihost``): one process a rank.
+``--num_devices N`` above 1 spawns N ranks on this host, NCCL on ``cuda:0`` ..
+``cuda:N-1`` or gloo on the CPU; ``--multihost`` joins the group ``torchrun``
+started. N never exceeds the visible cards (no card is shared, nothing falls
+back to gloo or to the CPU), and the global ``--batchSize`` must split evenly
+over the ranks (JAX: ``eval_model.py:158``). The kernels are built in the
+parent before the ranks start, so they do not race on the build directory.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import pickle
+import tempfile
+from typing import Callable
 
 import torch
 
@@ -12,6 +25,7 @@ from meshrcnn_tpu_torch.core.config import CapacityConfig, resolve_backbone_dtyp
 from meshrcnn_tpu_torch.data.datasets import SyntheticDataset, pix3dDataset, shapeNet_Dataset
 from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
 from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel
+from meshrcnn_tpu_torch.parallel import distributed
 
 
 def device_of(name: str) -> torch.device:
@@ -21,6 +35,88 @@ def device_of(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     return device
+
+
+def add_parallel_flags(parser: argparse.ArgumentParser, default: str) -> None:
+    """``--num_devices`` and ``--multihost``; ``default`` says what N defaults to."""
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help=f"data-parallel ranks, one process and one card each "
+                             f"(default: {default}); --batchSize is the global batch "
+                             f"and must divide by it")
+    parser.add_argument("--multihost", default=False, action="store_true",
+                        help="join the process group torchrun started (RANK, WORLD_SIZE, "
+                             "LOCAL_RANK, MASTER_ADDR, MASTER_PORT), one rank a process")
+
+
+def world_of(options, device: torch.device, default: int) -> int:
+    """The ranks to spawn: ``--num_devices``, else ``default``. Raises when it
+    exceeds the visible cards (the CPU's cores under gloo) or does not divide
+    the batch."""
+    n = options.num_devices or default
+    have = torch.cuda.device_count() if device.type == "cuda" else (os.cpu_count() or 1)
+    if not 1 <= n <= have:
+        raise ValueError(f"--num_devices {n}: {have} {device.type} devices are visible; "
+                         "a rank never shares a card")
+    check_split(options.batchSize, n)
+    return n
+
+
+def check_split(batch_size: int, world: int) -> None:
+    if batch_size % world:
+        raise ValueError(f"--batchSize {batch_size} does not split over {world} ranks")
+
+
+def run_ranks(body: Callable, options, default_world: int, *args):
+    """``body(options, device, *args)`` on every rank: in this process without
+    data parallelism (one rank) or under ``--multihost``, else in
+    ``world_of`` spawned processes, each joining a group through a file
+    store. Returns rank 0's result (spawned: what of it pickles, without
+    ``state``)."""
+    device = device_of(options.device)
+    if options.multihost:
+        distributed.init_from_env(distributed.backend_of(device))
+        try:
+            check_split(options.batchSize, distributed.world())
+            return body(options, _rank_device(device, distributed.local_rank()), *args)
+        finally:
+            distributed.destroy()
+    world = world_of(options, device, default_world)
+    if world == 1:
+        return body(options, device, *args)
+    if device.type == "cuda":
+        from meshrcnn_tpu_torch.ops import cuda_build
+        cuda_build.build(("chamfer_nn", "knn_topk"))
+    with tempfile.TemporaryDirectory() as tmp:
+        # spawned, not forked: a child must not inherit an initialised CUDA context
+        torch.multiprocessing.spawn(_rank_main, args=(world, tmp, body, options, args),
+                                    nprocs=world)
+        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+def _rank_device(device: torch.device, local: int) -> torch.device:
+    dev = torch.device(f"cuda:{local}") if device.type == "cuda" else device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _rank_main(rank: int, world: int, tmp: str, body: Callable, options, args) -> None:
+    """One spawned rank: join the group, run ``body``, and on rank 0 pickle
+    its result for the parent."""
+    device = _rank_device(device_of(options.device), rank)
+    if device.type == "cpu":         # the ranks share the cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.distributed.init_process_group(distributed.backend_of(device), rank=rank,
+                                         world_size=world,
+                                         init_method=f"file://{os.path.join(tmp, 'store')}")
+    try:
+        out = body(options, device, *args)
+        if rank == 0 and out is not None:
+            with open(os.path.join(tmp, "result.pkl"), "wb") as f:
+                pickle.dump({k: v for k, v in out.items() if k != "state"}, f)
+    finally:
+        distributed.destroy()
 
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:

@@ -2,7 +2,8 @@
 (counterpart of meshrcnn_tpu/utils/meters.py; reference: utils/train_utils.py:33-107).
 
 ``AverageMeter`` skips non-finite values with a warning (53-63);
-``ProgressMeter`` prints every ``print_freq`` batches; each epoch's meter
+``ProgressMeter`` prints every ``print_freq`` batches; both print on rank 0
+only (``safe_print``) under data parallelism; each epoch's meter
 averages are pickled to a ``.st`` file, ``{key: {"name": str, "history":
 [float, ...]}}``, the format ``plot_stats.py`` reads.
 """
@@ -11,6 +12,15 @@ from __future__ import annotations
 import math
 import pickle
 from typing import Dict, Iterable
+
+from meshrcnn_tpu_torch.parallel import distributed
+
+
+def safe_print(*args, **kwargs) -> None:
+    """``print`` on rank 0 of a data-parallel group, or without one
+    (reference: train_utils.py:33-35)."""
+    if distributed.rank() == 0:
+        print(*args, **kwargs)
 
 
 class AverageMeter:
@@ -31,7 +41,7 @@ class AverageMeter:
     def update(self, val, n: int = 1) -> None:
         val = float(val)
         if not math.isfinite(val):
-            print(f"warning meter {self.name} received a non finite value {val}")
+            safe_print(f"warning meter {self.name} received a non finite value {val}")
             return
         self.val = val
         self.sum += val * n
@@ -59,7 +69,7 @@ class ProgressMeter:
     def display(self, batch: int) -> None:
         entries = [self.prefix + self.batch_fmtstr.format(batch)]
         entries += [str(m) for m in self.meters]
-        print("\t".join(entries))
+        safe_print("\t".join(entries))
 
 
 def basic_metrics() -> Dict[str, AverageMeter]:

@@ -7,11 +7,23 @@ handed to the port, and carries flax parameters across with
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+import types
+
 import jax
 import numpy as np
 import torch
 
 from meshrcnn_tpu_torch.utils.jax_params import state_dict_from_jax
+
+# Under pytest-xdist each worker process would start one torch thread a core,
+# and the workers' threads would spin against each other (a port test ran ~15x
+# slower so): share the cores out between the workers. Every worker imports
+# this module when it collects the tests.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 
 
 def to_numpy_tree(tree):
@@ -116,3 +128,74 @@ def rel_err(got, want) -> float:
     got = np.asarray(got, dtype=np.float64)
     want = np.asarray(want, dtype=np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+
+def host_batch(batch) -> types.SimpleNamespace:
+    """A JAX batch as numpy arrays, which spawned ranks read without JAX."""
+    return types.SimpleNamespace(**{f.name: np.asarray(getattr(batch, f.name))
+                                    for f in dataclasses.fields(batch)
+                                    if getattr(batch, f.name) is not None})
+
+
+def nudged_images(images, seeds=range(8)):
+    """1e-6 changes of the input that measure a train-mode result's own
+    spread: scaled by 1 + 1e-6, and pixel by pixel by 1 + 1e-6 u for uniforms
+    u in [-1, 1] of each seed. One change alone may move a result 100 times
+    less than another (BatchNorm cancels a uniform scale)."""
+    images = np.asarray(images)
+    yield images * np.float32(1.0 + 1e-6)
+    for seed in seeds:
+        u = np.random.RandomState(seed).uniform(-1.0, 1.0, images.shape).astype(np.float32)
+        yield images * (1.0 + 1e-6 * u)
+
+
+def jax_dp_train_run(jm, jcfg, batch, template: torch.nn.Module, keys, steps: int,
+                     world: int = 2, last=None, seeds=range(8)) -> dict:
+    """JAX ``make_dp_train_step`` of ``jm`` on a ``world``-device CPU mesh:
+    ``steps`` steps on ``batch`` with ``keys``, then one on ``last`` if given
+    (key ``keys[steps]``); the same ``steps`` from each ``nudged_images``
+    first batch. State and batches are placed on the mesh first, so that the
+    program compiles once. Every state as numpy keyed like ``template``'s
+    state_dict."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+
+    from meshrcnn_tpu.parallel import train_step as jts
+    mesh = Mesh(np.array(jax.devices()[:world]), ("dp",))
+    state0 = jax.device_put(jts.create_train_state(jm, jcfg, jax.random.PRNGKey(0),
+                                                   batch.images),
+                            NamedSharding(mesh, PartitionSpec()))
+    step = jts.make_dp_train_step(jm, jcfg, mesh)
+
+    def sd(s):
+        return {k: v.numpy() for k, v in state_dict_from_flax(template, s.params,
+                                                              s.batch_stats).items()}
+
+    def run(first):
+        s, metrics, states = state0, [], []
+        for i in range(steps):
+            s, m = step(s, jts.shard_batch(first if i == 0 else batch, mesh), keys[i])
+            metrics.append(jax.device_get(m))
+            states.append(sd(s))
+        return s, metrics, states
+
+    s, metrics, states = run(batch)
+    if last is not None:
+        s, m = step(s, jts.shard_batch(last, mesh), keys[steps])
+        metrics.append(jax.device_get(m))
+        states.append(sd(s))
+    nudged = [run(batch.replace(images=x))[1:] for x in nudged_images(batch.images, seeds)]
+    return dict(sd0=sd(state0), metrics=metrics, states=states, nudged=nudged)
+
+
+def tree_distance(a: dict, b: dict, keys) -> float:
+    return float(np.sqrt(sum(((np.asarray(a[k], np.float64) - b[k]) ** 2).sum()
+                             for k in keys)))
+
+
+def within_spread(got: dict, want: dict, nudged: list, keys, what: str,
+                  factor: float = 4.0, floor: float = 1e-4) -> None:
+    """|got - want| <= factor max |nudged - want| + floor * scale, over the keys' tree."""
+    d = tree_distance(got, want, keys)
+    spread = max(tree_distance(n, want, keys) for n in nudged)
+    scale = tree_distance(want, {k: np.zeros_like(want[k]) for k in keys}, keys)
+    assert d <= factor * spread + floor * max(scale, 1.0), (what, d, spread, scale)
