@@ -34,7 +34,20 @@ Phases, each of which fails the run:
      at 1e-9), evaluate both (gathered outputs against the one-process eval,
      ``validate`` with K1 on rank 0), the train CLI on NCCL as rank 0 of a
      world of one (``--multihost``), and ms/step of one and two ranks with the
-     all-reduce's share;
+     all-reduce's share; then the rest of the user's surface: the reference-
+     style API (``models/api.py``: ShapeNetAPI and Pix3DAPI at the bench
+     recipes, the eval dict, the train-mode loss dict with the model left
+     unchanged in every bit and K1 x 3, two ``step()``s with K1 x 3 each,
+     ``load()`` of the CLI's checkpoints equal in every bit to
+     ``eval_model``'s forward, tiny APIs on the card against the CPU), the
+     demo below its image decode (one ``.npy`` and four ``.obj`` files a
+     valid object, each OBJ equal to the forward's mesh), ``bench.main`` (every
+     record key, 5 windows each, K1 exactly 3 x 20 x 6 a train bench and
+     4 x 26 / 5 x 26 an eval bench), ``train_backbone`` of both models (the
+     backbone checkpoint loaded whole, then a train CLI step from it), and
+     the tools (``download_dataset`` rendering with the port's cubify on the
+     card, ``point_cloud_f1`` through K2 equal in every bit to the CPU's,
+     ``time_this``);
   4. run small models on the card and on the CPU with the same weights: the
      ShapeNet and Pix3D eval forwards, one ShapeNet and one Pix3D train step,
      and the backward of each module and loss the steps differentiate through
@@ -2033,6 +2046,494 @@ def phase_dp(kernels, card: str, root: str):
             f"ms all-reduce, {t[kind][1] / t[kind][0]:.1%} of the step)" for kind in t))
 
 
+WANT_NONE = {"chamfer_nn_bidir": 0, "knn_topk_batched": 0, "chamfer_sums_fused": 0,
+             "knn_topk": 0}
+
+
+def _k1_only(n: int) -> dict:
+    return dict(WANT_NONE, chamfer_nn_bidir=n)
+
+
+def _check_api_eval(tag, got, B, D=None):
+    """Every key of the reference's eval dict, with consistent shapes."""
+    import torch
+    keys = {"backbone", "voxels", "vertex_positions", "faces", "edge_index", "vertice_index",
+            "face_index", "mesh_index"}
+    if set(got) != keys:
+        _fail(f"{tag}: eval dict keys {sorted(got)}")
+    n_obj = B if D is None else sum(got["mesh_index"])
+    total_v, total_f = sum(got["vertice_index"]), sum(got["face_index"])
+    shapes = [tuple(s.shape) for s in got["vertex_positions"]]
+    ok = (len(shapes) == 4 and all(s == (total_v, 3) for s in shapes)
+          and got["faces"].shape == (total_f, 3) and got["edge_index"].shape[0] == 2
+          and len(got["vertice_index"]) == len(got["face_index"]) == n_obj
+          and all(np.isfinite(s).all() for s in got["vertex_positions"])
+          and bool(torch.isfinite(got["voxels"]).all()))
+    if D is None:
+        ok = ok and tuple(got["backbone"].shape) == (B, 13) and got["mesh_index"] == [1] * B
+    else:
+        ok = ok and len(got["backbone"]) == B and all(
+            set(d) == {"boxes", "labels", "scores", "valid", "masks"} and d["boxes"].shape == (D, 4)
+            for d in got["backbone"]) and got["mesh_index"] == [
+                int(d["valid"].sum()) for d in got["backbone"]]
+    print(f"[api] {tag} eval: voxels {tuple(got['voxels'].shape)}, {n_obj} meshes, "
+          f"{total_v} verts, {total_f} faces, edge_index {got['edge_index'].shape}, "
+          f"mesh_index {got['mesh_index']}")
+    if not ok:
+        _fail(f"{tag}: the eval dict's shapes are inconsistent")
+
+
+def _api_train_checks(tag, api, batch, trainable_prefix: str):
+    """The train-mode loss dict (K1 x 3, the model unchanged in every bit),
+    then two steps (K1 x 3 each, the step count, parameters moved: with
+    random weights some get no gradient, and Adam without weight decay
+    leaves those where they are)."""
+    import torch
+    before = {k: v.clone() for k, v in api.model.state_dict().items()}
+    _reset_counts()
+    losses = api(batch.images, batch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    after = api.model.state_dict()
+    differ = [k for k in before if not torch.equal(before[k], after[k])]
+    print(f"[api] {tag} train-mode losses {json.dumps({k: float(v) for k, v in losses.items()})}; "
+          f"launches {counts}; changed entries: {differ or 'none'}")
+    if counts != _k1_only(3) or differ or "loss" in losses or any(
+            p.grad is not None for p in api.model.parameters()):
+        _fail(f"{tag}: the train-mode call launched {counts}, changed {differ}")
+    if not all(np.isfinite(float(v)) for v in losses.values()):
+        _fail(f"{tag}: a non-finite train-mode loss")
+    _reset_counts()
+    metrics = [api.step(batch.images, batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = _counts()
+    params = {n: p for n, p in api.model.named_parameters() if n.startswith(trainable_prefix)}
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in params.items())
+    print(f"[api] {tag} two steps: step {api.state.step}, loss "
+          f"{[round(float(m['loss']), 6) for m in metrics]}, grads_finite "
+          f"{[float(m['grads_finite']) for m in metrics]}; {moved} of {len(params)} "
+          f"'{trainable_prefix}' parameter tensors moved; launches {counts}")
+    if (counts != _k1_only(6) or api.state.step != 2 or moved == 0
+            or any(float(m["grads_finite"]) != 1.0 for m in metrics)):
+        _fail(f"{tag}: two steps launched {counts}, step {api.state.step}, moved {moved}")
+
+
+def _ragged_equal(a: dict, b: dict) -> list:
+    """Names of the eval-dict entries that differ in any bit."""
+    import torch
+    differ = [k for k in ("vertice_index", "face_index", "mesh_index") if a[k] != b[k]]
+    differ += [k for k in ("faces", "edge_index") if not np.array_equal(a[k], b[k])]
+    if not all(np.array_equal(x, y) for x, y in zip(a["vertex_positions"],
+                                                    b["vertex_positions"])):
+        differ.append("vertex_positions")
+    if not torch.equal(a["voxels"], b["voxels"]):
+        differ.append("voxels")
+    return differ
+
+
+def _cli_checkpoint(root: str, model: str):
+    import glob
+    import torch
+    paths = glob.glob(f"{root}/checkpoints/{model}/GCN/*/final.pt")
+    if len(paths) != 1:
+        _fail(f"phase_cli's {model} checkpoint not found: {paths}")
+    return paths[0], torch.load(paths[0], map_location="cpu", weights_only=True)["settings"]
+
+
+def _api_of(settings: dict, device: str):
+    """A ShapeNetAPI / Pix3DAPI of a checkpoint's model settings."""
+    from meshrcnn_tpu_torch.models.api import Pix3DAPI, ShapeNetAPI
+    common = {k: settings[k] for k in ("cubify_threshold", "vertex_feature_dim",
+                                       "num_refinement_stages", "voxel_only", "num_classes",
+                                       "vert_capacity", "face_capacity", "edge_capacity")}
+    if settings["model"] == "Pix3D":
+        extra = {k: settings[k] for k in ("rpn_pre_nms_top_n", "rpn_post_nms_top_n",
+                                          "roi_batch_size", "backbone_dtype",
+                                          "mesh_feature_norm")}
+        return Pix3DAPI(device=device, **common, **extra)
+    return ShapeNetAPI(residual=settings["residual"], device=device, **common)
+
+
+def phase_api(kernels, root: str):
+    """The reference-style API (``models/api.py``) at full width:
+    ``ShapeNetAPI`` at the bench recipe (residual, 48^3 voxels, capacities
+    8192/16384/32768, B=3 at 137x137) and ``Pix3DAPI`` at the Pix3D recipe
+    (B=4 at 224x224): the eval dict with every key and shape; the train-mode
+    loss dict (K1 x 3, every parameter and buffer equal in every bit before
+    and after); two ``step()``s (K1 x 3 each). Then ``load()`` of each
+    ``phase_cli`` checkpoint into an API of its settings, whose eval dict must
+    equal in every bit the forward of ``eval_model``'s model on the same
+    checkpoint and images; and a tiny ShapeNetAPI and Pix3DAPI (float32) on the
+    card against the CPU, the eval dicts within 1e-4 of scale."""
+    import torch
+
+    from meshrcnn_tpu_torch import harness
+    from meshrcnn_tpu_torch.models.api import Pix3DAPI, ShapeNetAPI, to_ragged
+    from meshrcnn_tpu_torch.parallel.train_step import create_train_state, make_eval_step
+    from meshrcnn_tpu_torch.utils import cli
+    from meshrcnn_tpu_torch.utils.checkpoint import load_state
+
+    dev = torch.device("cuda")
+    _, config, data = harness.shapenet_train_setup(1, "cpu")
+    api = ShapeNetAPI(residual=True, config=config)
+    api.eval()
+    _reset_counts()
+    _check_api_eval("ShapeNet", api(data[0].images), 3)
+    if _counts() != WANT_NONE:
+        _fail(f"ShapeNet API eval launched {_counts()}")
+    api.train()
+    _api_train_checks("ShapeNet", api, data[0], "refine")
+    kernels["chamfer_nn_bidir"]["launches"] += 9
+
+    _, config, data = harness.pix3d_train_setup(1, "cpu")
+    api = Pix3DAPI(config=config)
+    api.eval()
+    _check_api_eval("Pix3D", api(data[0].images), 4, 3)
+    api.train()
+    _api_train_checks("Pix3D", api, data[0], "backbone.backbone.")
+    kernels["chamfer_nn_bidir"]["launches"] += 9
+
+    for model_name, images in (
+            ("ShapeNet", harness.SyntheticBatch(np.random.RandomState(3)).images),
+            ("Pix3D", harness.SyntheticPix3DBatch(np.random.RandomState(3)).images)):
+        path, settings = _cli_checkpoint(root, model_name)
+        api = _api_of(settings, "cuda").load(path).eval()
+        got = api(images)
+        model = cli.build_model(settings, dev)
+        load_state(path, create_train_state(model, api.config), settings)
+        out = make_eval_step(model)(torch.from_numpy(images).to(dev))
+        stages, faces, edge_index, v_index, f_index = to_ragged(
+            out.stage_verts, out.mesh, getattr(out, "mesh_valid", None))
+        want = dict(voxels=out.voxels, vertex_positions=stages, faces=faces,
+                    edge_index=edge_index, vertice_index=v_index, face_index=f_index,
+                    mesh_index=[1] * images.shape[0])
+        differ = []
+        if model_name == "ShapeNet":
+            if not torch.equal(got["backbone"], torch.softmax(out.logits, -1)):
+                differ.append("backbone")
+        else:
+            det = out.detections
+            want["mesh_index"] = det.valid.sum(1).tolist()
+            for b, d in enumerate(got["backbone"]):
+                for k, v in (("boxes", det.boxes), ("scores", det.scores),
+                             ("labels", det.labels), ("valid", det.valid),
+                             ("masks", out.mask_probs)):
+                    if not np.array_equal(d[k], v[b].cpu().numpy()):
+                        differ.append(f"backbone[{b}].{k}")
+        differ += _ragged_equal(got, want)
+        print(f"[api] {model_name} load() of {path.split('/checkpoints/')[1]} into an API of "
+              f"its settings, eval dict against eval_model's model on 3 images: differing "
+              f"{differ or 'none'}")
+        if differ:
+            _fail(f"{model_name}: the loaded API's eval dict differs in {differ}")
+
+    _api_card_vs_cpu()
+
+
+def _api_card_vs_cpu():
+    """A tiny ShapeNetAPI and Pix3DAPI, float32, seed 1, on the card and on
+    the CPU: the same eval dict within 1e-4 of scale (topology identical where
+    cubify saw the same occupancy)."""
+    import torch
+
+    from meshrcnn_tpu_torch.models.api import Pix3DAPI, ShapeNetAPI
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0)) if b.size else 0.0
+
+    tiny = dict(vert_capacity=512, face_capacity=1024, edge_capacity=2048)
+    images = np.random.RandomState(0).rand(2, 48, 48, 3).astype(np.float32)
+    outs = []
+    for device in ("cpu", "cuda"):
+        api = ShapeNetAPI(voxel_out_channels=8, seed=1, device=device, **tiny)
+        api.model = _tiny_model().to(device)
+        api.model.load_state_dict(ShapeNetAPI(voxel_out_channels=8, seed=1, device="cpu",
+                                              **tiny).model.state_dict())
+        outs.append(api.eval()(images))
+    cpu, gpu = outs
+    errs = {"backbone": rel(gpu["backbone"].cpu(), cpu["backbone"]),
+            "voxels": rel(gpu["voxels"].cpu(), cpu["voxels"])}
+    same = _ragged_equal(gpu, dict(cpu, vertex_positions=gpu["vertex_positions"],
+                                   voxels=gpu["voxels"])) == []
+    if same:
+        errs["vertex_positions"] = max(rel(a, b) for a, b in zip(gpu["vertex_positions"],
+                                                                 cpu["vertex_positions"]))
+    print(f"[api] tiny ShapeNetAPI card vs cpu: topology identical {same}; "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    if not same or not all(e < 1e-4 for e in errs.values()):
+        _fail("the tiny ShapeNetAPI's eval dict differs between the card and the CPU")
+
+    images = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+    kw = dict(voxel_out_channels=8, vert_capacity=256, face_capacity=512, edge_capacity=1024,
+              rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32, roi_batch_size=32, mask_rois=8,
+              backbone_dtype="float32", seed=4)
+    cpu, gpu = [Pix3DAPI(device=d, **kw).eval()(images) for d in ("cpu", "cuda")]
+    same_det = all(np.array_equal(g["valid"], c["valid"]) and np.array_equal(g["labels"], c["labels"])
+                   for g, c in zip(gpu["backbone"], cpu["backbone"]))
+    if not same_det:
+        _fail("the tiny Pix3DAPI's detections differ in validity or labels")
+    errs = {"boxes px": max(float(np.abs(g["boxes"][g["valid"]] - c["boxes"][c["valid"]]).max(initial=0))
+                            for g, c in zip(gpu["backbone"], cpu["backbone"])),
+            "scores": max(rel(g["scores"][g["valid"]], c["scores"][c["valid"]])
+                          for g, c in zip(gpu["backbone"], cpu["backbone"])),
+            "masks": max(rel(g["masks"][g["valid"]], c["masks"][c["valid"]])
+                         for g, c in zip(gpu["backbone"], cpu["backbone"])),
+            "voxels": rel(gpu["voxels"].cpu(), cpu["voxels"])}
+    same = _ragged_equal(gpu, dict(cpu, vertex_positions=gpu["vertex_positions"],
+                                   voxels=gpu["voxels"])) == []
+    if same:
+        errs["vertex_positions"] = max(rel(a, b) for a, b in zip(gpu["vertex_positions"],
+                                                                 cpu["vertex_positions"]))
+    print(f"[api] tiny Pix3DAPI card vs cpu: {sum(cpu['mesh_index'])} meshes, topology "
+          f"identical {same}; " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    ok = errs.pop("boxes px") <= 1e-3 and all(e < 1e-4 for e in errs.values())
+    if not same or not ok:
+        _fail("the tiny Pix3DAPI's eval dict differs between the card and the CPU")
+
+
+def phase_demo(root: str):
+    """``demo.run``, the demo below the image decode, on a synthetic ShapeNet
+    image (137x137) and a Pix3D image (224x224), each with its ``phase_cli``
+    checkpoint and the flags of that checkpoint's settings: one ``.npy`` and
+    four ``.obj`` files a valid object, each OBJ read back equal to the eval
+    forward's masked vertices and faces. No kernel launches (eval, no metrics)."""
+    import os
+
+    import torch
+
+    from meshrcnn_tpu_torch import demo, harness
+    from meshrcnn_tpu_torch.data.serialization import load_mesh
+
+    for model_name, images in (
+            ("ShapeNet", harness.SyntheticBatch(np.random.RandomState(4), B=1).images),
+            ("Pix3D", harness.SyntheticPix3DBatch(np.random.RandomState(4), B=1).images)):
+        path, s = _cli_checkpoint(root, model_name)
+        flags = ["--model", model_name, "--imagePath", f"{model_name.lower()}.png",
+                 "--savePath", os.path.join(root, "demo", model_name), "--modelPath", path,
+                 "--threshold", repr(s["cubify_threshold"]), "--featDim",
+                 str(s["vertex_feature_dim"]), "-nr", str(s["num_refinement_stages"]),
+                 "--vert_capacity", str(s["vert_capacity"]), "--face_capacity",
+                 str(s["face_capacity"]), "--edge_capacity", str(s["edge_capacity"])]
+        if model_name == "Pix3D":
+            flags += ["--img_size", "224"] + (["--mesh_feature_norm"]
+                                              if s["mesh_feature_norm"] else [])
+        elif s["residual"]:
+            flags.append("--residual")
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = demo.run(demo.parser.parse_args(flags), images)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = res["out"]
+        valid = (out.mesh_valid.cpu().numpy() if model_name == "Pix3D"
+                 else np.ones(1, bool))
+        objs = np.flatnonzero(valid).tolist()
+        files = sorted(os.listdir(os.path.join(root, "demo", model_name)))
+        stem = f"{model_name.lower()}"
+        want = sorted([f"{stem}_voxel_obj{i}.npy" for i in objs]
+                      + [f"{stem}_mesh_stage{s_}_obj_{i}.obj" for i in objs for s_ in range(4)])
+        differ = []
+        vmask, fmask = out.mesh.verts_mask.cpu().numpy(), out.mesh.faces_mask.cpu().numpy()
+        faces = out.mesh.faces.cpu().numpy()
+        for s_ in range(4):
+            verts = out.stage_verts[s_].cpu().numpy()
+            for i in objs:
+                m = load_mesh(os.path.join(root, "demo", model_name,
+                                           f"{stem}_mesh_stage{s_}_obj_{i}.obj"))
+                if not (np.array_equal(m.vertices, verts[i][vmask[i]])
+                        and np.array_equal(m.faces, faces[i][fmask[i]])):
+                    differ.append(f"stage {s_} obj {i}")
+        print(f"[demo] {model_name}: {len(objs)} valid objects, {len(files)} files in "
+              f"{wall:.3f} s; OBJs differing from the eval forward: {differ or 'none'}; "
+              f"launches {_counts()}")
+        if files != want or differ or _counts() != WANT_NONE:
+            _fail(f"{model_name} demo: files {files}, want {want}; differing {differ}")
+
+
+def phase_bench(kernels, card: str):
+    """``bench.main(["--model", "both"])`` in this process: every key of the
+    record, none skipped under the default budget, 5 windows in each
+    ``window_s``, K1 exactly 3 x 20 x 6 a train bench (the normal-term
+    variant too), 4 x 26 and 5 x 26 for the ShapeNet and Pix3D evals. Prints
+    the record beside the card's name and power limit."""
+    import contextlib
+    import io
+
+    from meshrcnn_tpu_torch import bench
+
+    per_bench = []
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            before = _counts()
+            out = fn(*args, **kwargs)
+            per_bench.append((fn.__name__, {k: v - before[k] for k, v in _counts().items()}))
+            return out
+        return run
+
+    names = ("bench_shapenet", "bench_pix3d", "bench_shapenet_eval", "bench_pix3d_eval")
+    originals = {n: getattr(bench, n) for n in names}
+    buf = io.StringIO()
+    try:
+        for n in names:
+            setattr(bench, n, counted(originals[n]))
+        _reset_counts()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--model", "both"])
+    finally:
+        for n, fn in originals.items():
+            setattr(bench, n, fn)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    record = json.loads(lines[-1])
+    print(f"[bench] {card}: {lines[-1]}")
+    keys = {"metric", "value", "unit", "vs_baseline", "flops_per_step", "achieved_tflops",
+            "mfu_pct_vs_bf16_peak", "window_s", "bench_elapsed_s", "device", "power_limit_w",
+            "pix3d_train_samples_per_sec", "pix3d_vs_baseline", "pix3d_window_s",
+            "pix3d_flops_per_step", "pix3d_achieved_tflops", "pix3d_mfu_pct_vs_bf16_peak",
+            "shapenet_eval_samples_per_sec", "shapenet_eval_s_per_batch",
+            "pix3d_eval_samples_per_sec", "pix3d_eval_s_per_batch",
+            "shapenet_with_normal_term_sps"}
+    want = [("bench_shapenet", _k1_only(360)), ("bench_pix3d", _k1_only(360)),
+            ("bench_shapenet_eval", _k1_only(104)), ("bench_pix3d_eval", _k1_only(130)),
+            ("bench_shapenet", _k1_only(360))]
+    print(f"[bench] launches a bench: {per_bench}; {len(lines)} records printed")
+    if set(record) != keys:
+        _fail(f"bench record keys differ: missing {sorted(keys - set(record))}, extra "
+              f"{sorted(set(record) - keys)}")
+    if len(record["window_s"]) != 5 or len(record["pix3d_window_s"]) != 5:
+        _fail("a bench did not keep 5 windows")
+    if per_bench != want:
+        _fail(f"the benches launched {per_bench}, want {want}")
+    numbers = keys - {"metric", "unit", "window_s", "pix3d_window_s", "device"}
+    if not all(record[k] is not None and np.isfinite(record[k]) and record[k] >= 0
+               for k in numbers) or not all(record[k] > 0 for k in (
+                   "value", "pix3d_train_samples_per_sec", "shapenet_eval_samples_per_sec",
+                   "pix3d_eval_samples_per_sec", "shapenet_with_normal_term_sps")):
+        _fail(f"a bench number is not a positive finite number: {record}")
+    kernels["chamfer_nn_bidir"]["launches"] += sum(c["chamfer_nn_bidir"] for _, c in per_bench)
+
+
+def phase_train_backbone(kernels, root: str):
+    """``python -m meshrcnn_tpu_torch.train_backbone`` of both models on the
+    synthetic dataset (8 samples, B=4, one epoch): the backbone checkpoint
+    written, ``load_backbone`` of it into a fresh ``ShapeNetModel`` /
+    ``Pix3DModel`` with every backbone tensor loaded and none left fresh, then
+    one step of the train CLI with ``--backbone_path`` on it (K1 x 3)."""
+    import os
+
+    import torch
+
+    from meshrcnn_tpu_torch import train, train_backbone
+    from meshrcnn_tpu_torch.models.pix3d import Pix3DModel
+    from meshrcnn_tpu_torch.models.shapenet import ShapeNetModel
+    from meshrcnn_tpu_torch.utils.torch_convert import load_backbone
+
+    shapes = {"ShapeNet": ["--residual", "--vert_capacity", "8192", "--face_capacity", "16384",
+                           "--edge_capacity", "32768"],
+              "Pix3D": ["--img_size", "224", "--vert_capacity", "4096", "--face_capacity",
+                        "8192", "--edge_capacity", "16384", "--optim", "SGD", "--lr", "0.02",
+                        "--train_backbone"]}
+    for model_name, B in (("ShapeNet", 4), ("Pix3D", 4)):
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = train_backbone.main(["--model", model_name, "--num_sampels", "8", "-b", str(B),
+                                   "--nEpoch", "1", "--workers", "2", "--print_freq", "1",
+                                   "--checkpoint_root", os.path.join(root, "bb")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meters = {k: m.history for k, m in out["meters"].items()}
+        files = sorted(os.listdir(out["dir"]))
+        fresh = (Pix3DModel() if model_name == "Pix3D" else ShapeNetModel()).cuda()
+        n_loaded, n_fresh = load_backbone(fresh, out["checkpoints"][0],
+                                          maskrcnn=model_name == "Pix3D")
+        trained = out["model"].state_dict()
+        sd = fresh.state_dict()
+        differ = [k for k, v in trained.items() if not torch.equal(sd[f"backbone.{k}"], v)]
+        print(f"[backbone] {model_name}: 2 steps of {B} in {wall:.3f} s; meters "
+              f"{json.dumps(meters)}; {out['dir'].split('/bb/')[1]}: {files}; load_backbone "
+              f"{n_loaded} loaded, {n_fresh} fresh of {len(trained)}, differing "
+              f"{len(differ)}; launches {_counts()}")
+        if (files != ["backbone_0.pt", "stats_0.st"] or (n_loaded, n_fresh) != (len(trained), 0)
+                or differ or not all(np.isfinite(h).all() for h in meters.values())
+                or _counts() != WANT_NONE):
+            _fail(f"{model_name} backbone training: files {files}, loaded {n_loaded}/{n_fresh}")
+        _reset_counts()
+        res = train.main(["--model", model_name, "-b", str(B), "--num_sampels", str(B),
+                          "--nEpoch", "1", "--workers", "2", "--num_devices", "1",
+                          "--point_cloud_size", "10000", "--backbone_path",
+                          out["checkpoints"][0], "--checkpoint_root",
+                          os.path.join(root, "from_backbone")] + shapes[model_name])
+        counts = _counts()
+        sd = res["state"].model.state_dict()
+        print(f"[backbone] {model_name} train CLI from the backbone: step {res['state'].step}, "
+              f"grads_finite {res['meters']['grads_finite'].history}; launches {counts}")
+        if res["state"].step != 1 or counts != _k1_only(3):
+            _fail(f"{model_name}: the train CLI from the backbone took {res['state'].step} "
+                  f"steps, launched {counts}")
+        kernels["chamfer_nn_bidir"]["launches"] += 3
+
+
+def phase_tools(kernels, root: str):
+    """``download_dataset --render_meshes --build_manifest`` on a small binvox
+    tree (the port's cubify on the card); ``point_cloud_f1`` on the card equal
+    in every bit to its CPU result with one K2 launch (one K1 launch);
+    ``profiling.time_this`` on a card tensor."""
+    import os
+
+    import torch
+
+    from meshrcnn_tpu_torch import download_dataset
+    from meshrcnn_tpu_torch.data.serialization import write_binvox
+    from meshrcnn_tpu_torch.utils import metrics, profiling
+
+    ds = os.path.join(root, "dataset")
+    rng = np.random.RandomState(5)
+    zz, yy, xx = np.mgrid[:32, :32, :32]
+    for i, synset in enumerate(("02691156", "03001627", "04379243")):
+        c = rng.uniform(10, 22, 3)
+        grid = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 < rng.uniform(30, 90)
+        os.makedirs(os.path.join(ds, "ShapeNetVox32", synset, f"m{i}"))
+        write_binvox(grid, os.path.join(ds, "ShapeNetVox32", synset, f"m{i}", "model.binvox"))
+        png = os.path.join(ds, "ShapeNetRendering", synset, f"m{i}", "rendering")
+        os.makedirs(png)
+        for j in range(3):
+            open(os.path.join(png, f"{j:02d}.png"), "wb").close()
+    t0 = time.perf_counter()
+    download_dataset.main(["--render_meshes", "--build_manifest", "--root", ds])
+    wall = time.perf_counter() - t0
+    objs = [os.path.join(d, f) for d, _, fs in os.walk(ds) for f in fs if f.endswith(".obj")]
+    with open(os.path.join(ds, "shapenet.json")) as f:
+        records = json.load(f)
+    print(f"[tools] download_dataset: {len(objs)} meshes rendered, {len(records)} manifest "
+          f"records in {wall:.3f} s")
+    if len(objs) != 3 or len(records) != 9:
+        _fail("download_dataset did not render 3 meshes and list 9 records")
+
+    g = torch.Generator().manual_seed(6)
+    p = torch.rand((10000, 3), generator=g)
+    q = p + 0.05 * torch.randn((10000, 3), generator=g)
+    cpu = metrics.point_cloud_f1(p, q, 0.1)
+    _reset_counts()
+    gpu = metrics.point_cloud_f1(p.cuda(), q.cuda(), 0.1)
+    counts = _counts()
+    print(f"[tools] point_cloud_f1 at 10k points: card {gpu}, cpu {cpu}; launches {counts}")
+    if gpu != cpu or counts != dict(WANT_NONE, chamfer_nn_bidir=1, chamfer_sums_fused=1):
+        _fail(f"point_cloud_f1 on the card {gpu} against the CPU {cpu}, launches {counts}")
+    kernels["chamfer_nn_bidir"]["launches"] += 1
+    kernels["chamfer_sums_fused"]["launches"] += 1
+
+    log = {}
+
+    @profiling.time_this(log=log)
+    def card_work():
+        return torch.ones((4096, 4096), device="cuda") @ torch.ones((4096, 4096), device="cuda")
+    card_work()
+    print(f"[tools] time_this on a card matmul: {log['card_work'][0] * 1e3:.3f} ms")
+    if len(log["card_work"]) != 1 or not log["card_work"][0] > 0:
+        _fail("time_this did not log the card's work")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2060,7 +2561,12 @@ def main() -> None:
     timed(phase_single, kernels)
     with tempfile.TemporaryDirectory() as root:
         timed(phase_cli, kernels, root)
+        timed(phase_api, kernels, root)
+        timed(phase_demo, root)
         timed(phase_dp, kernels, card, root)
+        timed(phase_bench, kernels, card)
+        timed(phase_train_backbone, kernels, root)
+        timed(phase_tools, kernels, root)
     timed(phase_small_card_vs_cpu)
     timed(phase_small_pix3d_card_vs_cpu)
     timed(phase_small_train_card_vs_cpu)

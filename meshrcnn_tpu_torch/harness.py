@@ -84,7 +84,7 @@ def pix3d_train_setup(batches: int, device: torch.device | str = "cuda", seed: i
     clouds, B=4, random weights and data from ``seed``; SGD at lr 0.02 under
     the Pix3D schedule (0.002 at step 0), weight decay 1e-4, the backbone
     trained, weights voxel 3 / chamfer 1 / normal 0.1 / edge 0.5.
-    ``overrides`` replace fields of the config."""
+    ``overrides`` replace fields of the config (``batch_size``: the batches' B)."""
     torch.manual_seed(seed)
     model = Pix3DModel.from_config(Pix3DConfig(
         capacities=CapacityConfig(verts=4096, faces=8192, edges=16384))).to(device)
@@ -95,7 +95,8 @@ def pix3d_train_setup(batches: int, device: torch.device | str = "cuda", seed: i
                                                   edge=0.5))
     config = dataclasses.replace(config, **overrides)
     rng = np.random.RandomState(seed)
-    return model.train(), config, [SyntheticPix3DBatch(rng) for _ in range(batches)]
+    return model.train(), config, [SyntheticPix3DBatch(rng, B=config.batch_size)
+                                   for _ in range(batches)]
 
 
 def pix3d_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
@@ -107,23 +108,26 @@ def pix3d_bench_setup(batches: int, device: torch.device | str = "cuda", seed: i
     return model.eval(), config, data
 
 
-def _bench_model(device) -> ShapeNetModel:
+def _bench_model(device, backbone_dtype: str) -> ShapeNetModel:
     return ShapeNetModel(num_classes=13, residual=True, cubify_threshold=0.2,
                          voxel_out_channels=48, vertex_feature_dim=128,
                          num_refinement_stages=3, vert_capacity=8192,
-                         face_capacity=16384, edge_capacity=32768).to(device)
+                         face_capacity=16384, edge_capacity=32768,
+                         backbone_dtype=backbone_dtype).to(device)
 
 
 def shapenet_train_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
-                         **overrides):
+                         backbone_dtype: str = "float32", **overrides):
     """(model, config, numpy batches) of the full-width bench recipe
     (bench.py:103-137): ResNet-50 at 137x137, residual refinement, 48^3 voxels,
     capacities 8192/16384/32768, 10k-point clouds, B=3, random weights and data
     from ``seed``; Adam at lr 1e-4 without weight decay, a frozen backbone,
-    loss weights voxel 1, chamfer 1, normal 0, edge 0.5. ``overrides`` replace
-    fields of the config (``loss_weights``, ``face_normals``, ...)."""
+    loss weights voxel 1, chamfer 1, normal 0, edge 0.5. ``backbone_dtype`` is
+    the ResNet-50's: float32 here, bfloat16 in ``bench`` (the JAX model's
+    default). ``overrides`` replace fields of the config (``loss_weights``,
+    ``face_normals``, ``batch_size``: the batches' B, ...)."""
     torch.manual_seed(seed)
-    model = _bench_model(device)
+    model = _bench_model(device, backbone_dtype)
     config = TrainConfig(optimizer="adam", lr=1e-4, weight_decay=0.0, batch_size=3,
                          point_cloud_size=10000, normal_k=10, distance_tile=2048,
                          train_backbone=False,
@@ -131,15 +135,16 @@ def shapenet_train_setup(batches: int, device: torch.device | str = "cuda", seed
                                                   edge=0.5))
     config = dataclasses.replace(config, **overrides)
     rng = np.random.RandomState(seed)
-    return model, config, [SyntheticBatch(rng) for _ in range(batches)]
+    return model, config, [SyntheticBatch(rng, B=config.batch_size) for _ in range(batches)]
 
 
 def shapenet_bench_setup(batches: int, device: torch.device | str = "cuda", seed: int = 0,
-                         **overrides):
+                         backbone_dtype: str = "float32", **overrides):
     """``shapenet_train_setup``'s recipe with the model in eval mode, for
     ``validate``, which reads the config's point_cloud_size, normal_k,
     distance_tile and face_normals."""
-    model, config, data = shapenet_train_setup(batches, device, seed, **overrides)
+    model, config, data = shapenet_train_setup(batches, device, seed, backbone_dtype,
+                                               **overrides)
     return model.eval(), config, data
 
 

@@ -14,7 +14,9 @@ A launch is one sweep over the 128 x 256 tile pairs of ``sweep_plan`` (every
 distance computed once, for both directions) and a small kernel that resolves
 the packed keys the sweep leaves to (distance, index).
 ``nn_bidir.launches`` counts kernel launches, ``chamfer_sums_fused.launches``
-those of them made for K2 (it adds the change of ``nn_bidir.launches``).
+those of them made for K2: ``nn_bidir_single``, the single-sample launch
+behind ``chamfer_sums_fused`` and ``utils/metrics.point_cloud_f1``, adds the
+change of ``nn_bidir.launches`` there.
 
 Gradients: the sums are recomputed from the kernel's integer indices with
 ``torch.gather``, so autograd of ``exact_sums_batched`` with the indices fixed
@@ -161,14 +163,23 @@ def chamfer_sums_batched(p: torch.Tensor, q: torch.Tensor):
     return s_p, i_p, s_q, i_q
 
 
-def chamfer_sums_fused(p: torch.Tensor, q: torch.Tensor):
-    """K2: (sum_p, idx_p [N], sum_q, idx_q [M]) for one cloud pair p [N,3], q [M,3],
-    a B=1 call of ``chamfer_sums_batched``. Its ``launches`` adds the K1 launches
-    this call made."""
+def nn_bidir_single(p: torch.Tensor, q: torch.Tensor):
+    """K2: ``nn_bidir`` of one cloud pair p [N,3], q [M,3] -> (d_p [N], i_p [N],
+    d_q [M], i_q [M]), a B=1 launch of K1, counted on
+    ``chamfer_sums_fused.launches`` (K2's counter)."""
     before = nn_bidir.launches
-    s_p, i_p, s_q, i_q = chamfer_sums_batched(p[None], q[None])
+    d_p, i_p, d_q, i_q = nn_bidir(p[None], q[None])
     chamfer_sums_fused.launches += nn_bidir.launches - before
-    return s_p[0], i_p[0], s_q[0], i_q[0]
+    return d_p[0], i_p[0], d_q[0], i_q[0]
+
+
+def chamfer_sums_fused(p: torch.Tensor, q: torch.Tensor):
+    """K2: (sum_p, idx_p [N], sum_q, idx_q [M]) for one cloud pair p [N,3], q [M,3]:
+    ``chamfer_sums_batched`` of a batch of one, its indices from ``nn_bidir_single``.
+    Its ``launches`` counts every K2 launch."""
+    _, i_p, _, i_q = nn_bidir_single(p.detach().float(), q.detach().float())
+    s_p, s_q = exact_sums_batched(p[None], q[None], i_p[None], i_q[None])
+    return s_p[0], i_p, s_q[0], i_q
 
 
 chamfer_sums_fused.launches = 0

@@ -8,6 +8,7 @@ Randomness comes from a ``uniform(shape)`` callable, drawn three times per
 call in a fixed order: the face-choice uniforms ``u``, then ``xi1``, then
 ``xi2``, each [B, num_points], and used in the vertices' dtype. ``uniform_from(generator)`` makes one from a
 ``torch.Generator``; tests hand in the JAX package's draws instead.
+``face_areas`` and ``sample_points`` are the single-sample forms.
 """
 from __future__ import annotations
 
@@ -25,6 +26,28 @@ def uniform_from(generator: torch.Generator) -> Uniform:
     """Uniform [0, 1) float32 draws of a given shape from ``generator``, on its device."""
     return lambda shape: torch.rand(shape, generator=generator,
                                     device=generator.device, dtype=torch.float32)
+
+
+def face_areas(verts: torch.Tensor, faces: torch.Tensor,
+               faces_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Triangle areas |AB x AC| / 2 (reference: mesh_sampling.py:39-57):
+    verts [V, 3], faces [F, 3] -> [F]; masked faces get area 0."""
+    tri = verts[faces.long()]                                     # [F, 3, 3]
+    n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    areas = 0.5 * torch.linalg.vector_norm(n, dim=-1)
+    if faces_mask is not None:
+        areas = torch.where(faces_mask, areas, torch.zeros_like(areas))
+    return areas
+
+
+def sample_points(verts: torch.Tensor, faces: torch.Tensor, faces_mask: torch.Tensor,
+                  num_points: int, uniform: Uniform, normalize: bool = True):
+    """One padded mesh: verts [V,3], faces [F,3], faces_mask [F] -> (points
+    [num_points, 3], valid [] bool), ``batched_sample_points`` of a batch of
+    one (its three draws are [1, num_points])."""
+    pts, valid = batched_sample_points(verts[None], faces[None], faces_mask[None],
+                                       num_points, uniform, normalize)
+    return pts[0], valid[0]
 
 
 def batched_sample_points(verts: torch.Tensor, faces: torch.Tensor,

@@ -8,7 +8,8 @@ schedule's state, the step count, the state of each rank's generator of the
 step's uniform draws with the world size (one rank without data
 parallelism), the optimizer's class name, and ``settings``, the model config
 as a dict of primitives. The directory layout is the reference's:
-``<root>/<Model>/GCN/<iso-date>/model_<epoch>.pt``.
+``<root>/<Model>/GCN/<iso-date>/model_<epoch>.pt``
+(``train_backbone`` writes under ``<root>/<Model>/backbone/<iso-date>/``).
 
 Under data parallelism every rank holds the same model and optimizer state;
 rank 0 writes the file while the others wait at a barrier, and every rank
@@ -40,9 +41,10 @@ class WorldSizeError(Exception):
     """A checkpoint's generators are of another number of ranks than this run's."""
 
 
-def checkpoint_dir(root: str, model_name: str) -> str:
-    """<root>/<Model>/GCN/<iso-date>/, made if missing (reference: train.py:186-192)."""
-    path = os.path.join(root, model_name, "GCN", datetime.date.today().isoformat())
+def checkpoint_dir(root: str, model_name: str, kind: str = "GCN") -> str:
+    """<root>/<Model>/<kind>/<iso-date>/, made if missing (reference:
+    train.py:186-192); ``kind`` is "GCN", or "backbone" for ``train_backbone``."""
+    path = os.path.join(root, model_name, kind, datetime.date.today().isoformat())
     os.makedirs(path, exist_ok=True)
     return path
 

@@ -5,7 +5,7 @@
 ``ProgressMeter`` prints every ``print_freq`` batches; both print on rank 0
 only (``safe_print``) under data parallelism; each epoch's meter
 averages are pickled to a ``.st`` file, ``{key: {"name": str, "history":
-[float, ...]}}``, the format ``plot_stats.py`` reads.
+[float, ...]}}``, the format ``plot_stats`` reads.
 """
 from __future__ import annotations
 
@@ -76,6 +76,15 @@ def basic_metrics() -> Dict[str, AverageMeter]:
     """reference: train_utils.py:89-91."""
     return {"batch_time": AverageMeter("batch_time", ":6.3f"),
             "data_loading": AverageMeter("data_loading", ":6.3f")}
+
+
+def maskrcnn_metrics() -> Dict[str, AverageMeter]:
+    """reference: train_utils.py:94-97, the R-CNN and RPN losses."""
+    meters = basic_metrics()
+    for k in ("loss_classifier", "loss_box_reg", "loss_mask",
+              "loss_objectness", "loss_rpn_box_reg"):
+        meters[k] = AverageMeter(k, ":.4f")
+    return meters
 
 
 def gcn_metrics(voxel_only: bool = False) -> Dict[str, AverageMeter]:

@@ -4,12 +4,17 @@ utils/metrics.py).
 The port keeps its own copies of the JAX package's numpy metrics: the
 confusion F-beta, box IoU, ranked AP and the AUC that scores AP_mesh (with the
 trapezoid rule written out; the card's machine has no scikit-learn), and a
-batched torch form of the device-side mask paste.
+batched torch form of the device-side mask paste. The single-sample helpers
+for the API's and the demo's users are here too: ``point_cloud_f1`` (one K2
+launch for clouds on the card), ``paste_mask_in_image`` (PIL, imported when
+called), ``calc_precision_box`` and ``calc_precision_mask``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from meshrcnn_tpu_torch.ops.chamfer_cuda import nn_bidir_single
 
 
 def f_score(confusion_matrix: np.ndarray, beta: float = 1.0) -> np.ndarray:
@@ -21,6 +26,70 @@ def f_score(confusion_matrix: np.ndarray, beta: float = 1.0) -> np.ndarray:
     b2 = beta * beta
     denom = np.maximum(b2 * precision + recall, 1e-12)
     return 100.0 * (1 + b2) * precision * recall / denom
+
+
+def point_cloud_f1(pred_points, gt_points, tau: float = 0.1):
+    """F1@tau between two sampled clouds [N,3], [M,3] (the Mesh R-CNN paper's
+    metric): precision is the share of predicted points whose squared distance
+    to the nearest GT point is below tau^2, recall the same the other way, F1
+    their harmonic mean. Returns (f1, precision, recall) as floats. Both
+    directions come from one ``nn_bidir_single`` call: one K2 launch for
+    clouds on the card, its plain twin for clouds on the CPU (numpy input is
+    read as a CPU tensor)."""
+    p = torch.as_tensor(pred_points, dtype=torch.float32).contiguous()
+    g = torch.as_tensor(gt_points, dtype=torch.float32, device=p.device).contiguous()
+    d_p, _, d_g, _ = nn_bidir_single(p, g)
+    thresh = tau * tau
+    # counts divided on the host: the same float on every device
+    precision = int((d_p < thresh).sum()) / d_p.numel()
+    recall = int((d_g < thresh).sum()) / d_g.numel()
+    f1 = 2 * precision * recall / max(precision + recall, 1e-12)
+    return f1, precision, recall
+
+
+def paste_mask_in_image(mask: np.ndarray, box, height: int, width: int,
+                        threshold: float = 0.5) -> np.ndarray:
+    """Paste a K x K RoI mask of probabilities into a [height, width] binary
+    int32 image at its rounded, clamped box, resized by PIL's bilinear filter
+    (torchvision's paste semantics, used before AP_mask)."""
+    from PIL import Image
+    x1, y1, x2, y2 = [int(round(float(v))) for v in np.asarray(box).reshape(4)]
+    x1, y1 = max(x1, 0), max(y1, 0)
+    x2, y2 = min(max(x2, x1 + 1), width), min(max(y2, y1 + 1), height)
+    w, h = x2 - x1, y2 - y1
+    resized = np.asarray(Image.fromarray(np.asarray(mask, dtype=np.float32))
+                         .resize((w, h), Image.BILINEAR))
+    out = np.zeros((height, width), dtype=np.int32)
+    out[y1:y2, x1:x2] = (resized > threshold).astype(np.int32)
+    return out
+
+
+def calc_precision_box(pred_boxes, gt_boxes, iou_thresh: float = 0.5) -> float:
+    """The share of (GT box, its prediction) pairs with IoU above the threshold
+    (reference: metrics.py:31-38, one matched prediction a sample)."""
+    pred_boxes = np.asarray(pred_boxes).reshape(-1, 4)
+    gt_boxes = np.asarray(gt_boxes).reshape(-1, 4)
+    if pred_boxes.size == 0:
+        return 0.0
+    count = int(sum(box_iou(gt[None], pred[None])[0, 0] > iou_thresh
+                    for gt, pred in zip(gt_boxes, pred_boxes)))
+    return count / len(pred_boxes)
+
+
+def calc_precision_mask(pred_masks, gt_masks, iou_thresh: float = 0.5) -> float:
+    """The share of predicted masks whose pixel IoU with their own image's GT
+    mask is above the threshold (reference: metrics.py:43-53)."""
+    pred_masks = [np.asarray(m).astype(bool) for m in pred_masks]
+    gt = np.asarray(gt_masks).astype(bool)
+    if len(gt) != len(pred_masks):
+        raise ValueError(f"{len(pred_masks)} predicted masks for {len(gt)} GT masks")
+    hits = 0
+    for mb, g in zip(pred_masks, gt):
+        inter = np.logical_and(mb, g).sum()
+        union = np.logical_or(mb, g).sum()
+        if union > 0 and inter / union > iou_thresh:
+            hits += 1
+    return hits / max(len(pred_masks), 1)
 
 
 def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int, width: int,

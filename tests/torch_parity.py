@@ -95,19 +95,25 @@ def sampler_pair_draws(key, B: int, n: int) -> list:
             for j in (0, 1)]
 
 
+def maskrcnn_train_draws(key, B: int, anchors: int, proposals: int, roi_batch: int) -> list:
+    """Every uniform of the JAX ``Pix3DMaskRCNN`` in train mode with ``rng=key``,
+    in the port's order: the RPN sampler's pair over ``anchors`` rows from
+    fold_in(key, 3); the RoI sampler's pair over ``proposals`` rows (RPN
+    proposals + GT boxes) from fold_in(key, 5); the mask loss's
+    [B, roi_batch] from fold_in(fold_in(key, 5), 101)."""
+    k_roi = jax.random.fold_in(key, 5)
+    return (sampler_pair_draws(jax.random.fold_in(key, 3), B, anchors)
+            + sampler_pair_draws(k_roi, B, proposals)
+            + [np.asarray(jax.random.uniform(jax.random.fold_in(k_roi, 101), (B, roi_batch)))])
+
+
 def pix3d_train_step_draws(key, B: int, anchors: int, proposals: int, roi_batch: int,
                            pcs: int, num_stages: int = 3) -> list:
     """Every uniform of the JAX ``pix3d_loss_fn(..., key)``, in the port's order:
-    k_model, k_mesh = split(key); the RPN sampler's pair over ``anchors`` rows
-    from fold_in(k_model, 3); the RoI sampler's pair over ``proposals`` rows
-    (RPN proposals + GT boxes) from fold_in(k_model, 5); the mask loss's
-    [B, roi_batch] from fold_in(fold_in(k_model, 5), 101); then the mesh
-    losses' ``train_step_draws`` from k_mesh."""
+    k_model, k_mesh = split(key); ``maskrcnn_train_draws`` of k_model, then the
+    mesh losses' ``train_step_draws`` from k_mesh."""
     k_model, k_mesh = jax.random.split(key)
-    k_roi = jax.random.fold_in(k_model, 5)
-    return (sampler_pair_draws(jax.random.fold_in(k_model, 3), B, anchors)
-            + sampler_pair_draws(k_roi, B, proposals)
-            + [np.asarray(jax.random.uniform(jax.random.fold_in(k_roi, 101), (B, roi_batch)))]
+    return (maskrcnn_train_draws(k_model, B, anchors, proposals, roi_batch)
             + train_step_draws(k_mesh, B, pcs, num_stages))
 
 
