@@ -26,8 +26,15 @@ Phases, each of which fails the run:
      points: ``python -m meshrcnn_tpu_torch.train`` for 4 steps of each model
      through the data layer, its checkpoint reloaded bit-equal and resumed for
      a step, then ``eval_model`` on that checkpoint (K1 x 3 a step, x 4 / x 5
-     a ShapeNet / Pix3D eval batch); and the eval metrics of both models equal
-     in every bit over two runs; multi-step dispatch (``phase_multi_step``): a
+     a ShapeNet / Pix3D eval batch); the same CLIs on files
+     (``phase_real_data``): a 60-model mini-ShapeNet generated by the port
+     (binvox and PNG, no Pillow), its meshes rendered by ``download_dataset``,
+     2 epochs of train and an eval of the final checkpoint at the parity
+     recipe's widths (K1 x 3 a step, x 4 an eval batch, every loss finite,
+     the native decoder used), with host ms a file and ms/step of 2 against 4
+     loader threads, native against plain parsers, files against synthetic
+     data (printed); and the eval metrics of both models equal in every bit
+     over two runs; multi-step dispatch (``phase_multi_step``): a
      ShapeNet group of 4 against 4 single steps within 4x the card's own
      spread (K1 x 12), the inner steps of a group under
      ``torch.cuda.set_sync_debug_mode("error")`` with face normals and with
@@ -48,8 +55,9 @@ Phases, each of which fails the run:
      unchanged in every bit and K1 x 3, two ``step()``s with K1 x 3 each,
      ``load()`` of the CLI's checkpoints equal in every bit to
      ``eval_model``'s forward, tiny APIs on the card against the CPU), the
-     demo below its image decode (one ``.npy`` and four ``.obj`` files a
-     valid object, each OBJ equal to the forward's mesh), ``bench.main`` (every
+     demo below its image decode and from PNG files, a generated ShapeNet
+     render and a 300x200 Pix3D image (one ``.npy`` and four ``.obj`` files
+     a valid object, each OBJ equal to the forward's mesh), ``bench.main`` (every
      record key, 5 windows each, K1 exactly 3 x 20 x 6 a train bench and
      4 x 26 / 5 x 26 an eval bench), ``train_backbone`` of both models (the
      backbone checkpoint loaded whole, then a train CLI step from it), and
@@ -67,6 +75,7 @@ without that line when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1148,8 +1157,6 @@ def phase_cli(kernels, root: str):
     step count and the Pix3D learning rate, the stats and metrics files
     readable. Each batch's wait for the loader is printed: the ``data_loading``
     meter averages them with the first, which no thread prefetches."""
-    from meshrcnn_tpu_torch import harness
-
     recipes = {
         "ShapeNet": (3, ["--residual", "--vert_capacity", "8192", "--face_capacity", "16384",
                          "--edge_capacity", "32768"], [], 4),
@@ -1158,7 +1165,19 @@ def phase_cli(kernels, root: str):
                   ["--optim", "SGD", "--lr", "0.02", "--weightDecay", "1e-4",
                    "--train_backbone", "--voxel", "3"], 5),
     }
-    waits = []                         # each batch's wait, in the order waited
+    with _booked_waits() as (waits, wait_line):
+        _cli_runs(kernels, root, recipes, waits, wait_line)
+
+
+@contextlib.contextmanager
+def _booked_waits():
+    """Keep each batch's wait for the loader as well as the ``data_loading``
+    meter's mean (which includes the first, which no thread prefetches).
+    Yields (the waits in the order waited, a line describing them given the
+    steady ms of a step)."""
+    from meshrcnn_tpu_torch import harness
+
+    waits = []
     timed_iter = harness._timed_iter
 
     class Booked:
@@ -1179,7 +1198,7 @@ def phase_cli(kernels, root: str):
 
     harness._timed_iter = lambda loader, meter: timed_iter(loader, Booked(meter))
     try:
-        _cli_runs(kernels, root, recipes, waits, wait_line)
+        yield waits, wait_line
     finally:
         harness._timed_iter = timed_iter
 
@@ -1294,6 +1313,151 @@ def _cli_runs(kernels, root, recipes, waits, wait_line):
         if counts != want:
             _fail(f"{model_name} eval CLI launched {counts}, want {want}")
         kernels["chamfer_nn_bidir"]["launches"] += total + counts["chamfer_nn_bidir"]
+
+
+REAL_MODELS, REAL_VIEWS = 60, 2
+SHAPENET_FULL_WIDTH = ["--model", "ShapeNet", "-b", "3", "--residual", "--threshold", "0.2",
+                       "--vert_capacity", "8192", "--face_capacity", "16384",
+                       "--edge_capacity", "32768", "--point_cloud_size", "10000",
+                       "--num_devices", "1", "--print_freq", "1000"]
+
+
+def _per_file_ms(fn, paths) -> float:
+    t0 = time.perf_counter()
+    for p in paths:
+        fn(p)
+    return (time.perf_counter() - t0) / len(paths) * 1e3
+
+
+def phase_real_data(kernels, card: str, root: str):
+    """The train and eval CLIs on files: a 60-model, 2-view mini-ShapeNet
+    generated by ``meshrcnn_tpu_torch.make_mini_shapenet`` (binvox grids, PNG
+    renders), its meshes rendered and its manifest built by
+    ``download_dataset --render_meshes --build_manifest``, then ``train`` for
+    2 epochs of 60 samples and ``eval_model`` on the final checkpoint, at the
+    widths of tools/run_parity_experiment.sh: B=3, 137x137, residual,
+    cubify threshold 0.2, capacities 8192/16384/32768, 10k-point clouds, the
+    backbone trained, loss weights 1 / 1 / 0 / 0.5, Adam at lr 1e-4. Checked:
+    every loss finite, K1 x 3 a train step and x 4 an eval batch exactly, the
+    native decoder called for every kind of file, no Pillow imported, the
+    native and plain OBJ and binvox decoders equal on every file. Measured
+    (printed, nothing claimed): the host ms a file of a PNG read, an OBJ parse
+    (native and plain) and a binvox read; each batch's wait for the loader;
+    ms/step of 1-epoch runs on files with 2 and with 4 loader threads, with
+    the plain parsers and on ``--dataRoot synthetic``, each twice, in turns
+    (ABCD DCBA)."""
+    import glob
+    import os
+
+    import torch
+
+    from meshrcnn_tpu_torch import download_dataset, eval_model, make_mini_shapenet, train
+    from meshrcnn_tpu_torch.data import datasets, fastio, image_io, serialization
+
+    ds = os.path.join(root, "mini_shapenet")
+    fastio.reset_calls()
+    t0 = time.perf_counter()
+    make_mini_shapenet.main(["--root", ds, "--num_models", str(REAL_MODELS), "--views",
+                             str(REAL_VIEWS), "--seed", "0"])
+    download_dataset.main(["--render_meshes", "--build_manifest", "--root", ds])
+    made = time.perf_counter() - t0
+    pngs = sorted(glob.glob(os.path.join(ds, "ShapeNetRendering", "*", "*", "rendering", "*.png")))
+    objs = sorted(glob.glob(os.path.join(ds, "ShapeNetVox32", "*", "*", "*.obj")))
+    voxes = sorted(glob.glob(os.path.join(ds, "ShapeNetVox32", "*", "*", "*.binvox")))
+
+    def binvox_plain(path):
+        with open(path, "rb") as f:
+            return serialization.read_binvox_plain(f)
+    ms = {"png to_rgb": _per_file_ms(image_io.to_rgb, pngs),
+          "obj native": _per_file_ms(serialization.load_mesh, objs),
+          "obj plain": _per_file_ms(serialization.load_mesh_plain, objs),
+          "binvox native": _per_file_ms(serialization.load_voxels, voxes),
+          "binvox plain": _per_file_ms(binvox_plain, voxes)}
+    faces = [len(serialization.load_mesh(p).faces) for p in objs]
+    print(f"[real] {card}: generated and rendered {len(voxes)} models, {len(pngs)} PNGs of "
+          f"137x137 in {made:.3f} s; OBJ faces mean {np.mean(faces):.0f}, max {max(faces)}; "
+          f"host ms a file: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    differ = [p for p in objs if any(not np.array_equal(a, b) for a, b in zip(
+        serialization.load_mesh(p), serialization.load_mesh_plain(p)))]
+    differ += [p for p in voxes if not np.array_equal(serialization.load_voxels(p),
+                                                      binvox_plain(p))]
+    if len(pngs) != REAL_MODELS * REAL_VIEWS or len(objs) != REAL_MODELS or differ:
+        _fail(f"real data: {len(pngs)} PNGs, {len(objs)} OBJs; native against plain "
+              f"decoders differ on {differ}")
+
+    train_flags = ["--train_backbone", "--voxel", "1", "--chamfer", "1", "--normal", "0",
+                   "--edge", "0.5", "--optim", "Adam", "--lr", "1e-4", "--weightDecay", "0",
+                   "--num_sampels", str(REAL_MODELS)]
+    total = 0
+    with _booked_waits() as (waits, wait_line):
+        def run(tag, data_flags, epochs, workers):
+            nonlocal total
+            _reset_counts()
+            waits.clear()
+            t0 = time.perf_counter()
+            out = train.main(SHAPENET_FULL_WIDTH + train_flags + data_flags + [
+                "--nEpoch", str(epochs), "--workers", str(workers),
+                "--checkpoint_root", os.path.join(root, "real", tag)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, meters, steps = _counts(), out["meters"], out["state"].step
+            step_ms = meters["batch_time"].history[-1] * 1e3
+            print(f"[real] {tag}: {steps} steps of 3 in {wall:.3f} s; {step_ms:.2f} ms/step "
+                  f"over the last epoch (first step {meters['warmup_time'].history[0] * 1e3:.2f}"
+                  f" ms); {wait_line(step_ms)}; launches {counts}", flush=True)
+            history = {k: m.history for k, m in meters.items()}
+            if (steps != epochs * REAL_MODELS // 3 or len(waits) != steps
+                    or counts != _k1_only(3 * steps)
+                    or not all(np.isfinite(h).all() and len(h) == epochs
+                               for h in history.values())
+                    or meters["grads_finite"].history != [1.0] * epochs):
+                _fail(f"real data {tag}: {steps} steps, {len(waits)} waits, launches {counts}, "
+                      f"meters {history}")
+            total += counts["chamfer_nn_bidir"]
+            return out
+
+        out = run("files, 2 loader threads", ["--dataRoot", ds], 2, 2)
+        _reset_counts()
+        waits.clear()
+        res = eval_model.main(SHAPENET_FULL_WIDTH + [
+            "--dataRoot", ds, "--model_path", out["final"], "--test_ratio", "0.1",
+            "--workers", "2", "--output_path", os.path.join(root, "real", "eval")])
+        counts, batches = _counts(), len(pngs) // 10 // 3
+        scalars = {k: v for k, v in res.items() if isinstance(v, float)}
+        print(f"[real] eval of the final checkpoint: {batches} batches of 3; "
+              f"{res['batch_time'] * 1e3:.2f} ms/batch; {wait_line(res['batch_time'] * 1e3)}; "
+              f"launches {counts}; metrics {json.dumps(scalars)}", flush=True)
+        if counts != _k1_only(4 * batches) or len(waits) != batches or not all(
+                np.isfinite(v) for v in scalars.values()):
+            _fail(f"real data eval: launches {counts}, {len(waits)} waits, metrics {scalars}")
+        total += counts["chamfer_nn_bidir"]
+
+        native = (datasets.load_mesh, serialization.read_binvox)
+
+        def plain(tag):
+            datasets.load_mesh, serialization.read_binvox = (serialization.load_mesh_plain,
+                                                             serialization.read_binvox_plain)
+            try:
+                return run(tag, ["--dataRoot", ds], 1, 2)
+            finally:
+                datasets.load_mesh, serialization.read_binvox = native
+        variants = {
+            "files, 2 loader threads": lambda tag: run(tag, ["--dataRoot", ds], 1, 2),
+            "files, 4 loader threads": lambda tag: run(tag, ["--dataRoot", ds], 1, 4),
+            "files, 2 loader threads, plain OBJ and binvox parsers": plain,
+            "synthetic, 2 loader threads": lambda tag: run(tag, [
+                "--dataRoot", "synthetic", "--synthetic_size", str(REAL_MODELS * REAL_VIEWS)],
+                1, 2)}
+        step_ms = {tag: [] for tag in variants}
+        for tag in [*variants, *reversed(variants)]:      # ABCD DCBA: one of each in turn
+            step_ms[tag].append(variants[tag](tag)["meters"]["batch_time"].history[-1] * 1e3)
+    print(f"[real] {card}: ms/step of 1-epoch runs ({REAL_MODELS // 3} steps), in the order run: "
+          + "; ".join(f"{tag} {ms[0]:.2f}, {ms[1]:.2f}" for tag, ms in step_ms.items()))
+    print(f"[real] native decoder calls {fastio.calls}; PIL imported: {'PIL' in sys.modules}")
+    if not all(fastio.calls.values()) or "PIL" in sys.modules:
+        _fail(f"real data: native decoder calls {fastio.calls}, PIL imported "
+              f"{'PIL' in sys.modules}")
+    kernels["chamfer_nn_bidir"]["launches"] += total
 
 
 def _tiny_model():
@@ -2628,63 +2792,100 @@ def _api_card_vs_cpu():
         _fail("the tiny Pix3DAPI's eval dict differs between the card and the CPU")
 
 
+def _demo_flags(root: str, model_name: str, image_path: str, save: str) -> list:
+    """The demo's flags for ``phase_cli``'s checkpoint of ``model_name``."""
+    path, s = _cli_checkpoint(root, model_name)
+    flags = ["--model", model_name, "--imagePath", image_path, "--savePath", save,
+             "--modelPath", path, "--threshold", repr(s["cubify_threshold"]), "--featDim",
+             str(s["vertex_feature_dim"]), "-nr", str(s["num_refinement_stages"]),
+             "--vert_capacity", str(s["vert_capacity"]), "--face_capacity",
+             str(s["face_capacity"]), "--edge_capacity", str(s["edge_capacity"])]
+    if model_name == "Pix3D":
+        return flags + ["--img_size", "224"] + (["--mesh_feature_norm"]
+                                                if s["mesh_feature_norm"] else [])
+    return flags + (["--residual"] if s["residual"] else [])
+
+
+def _check_demo(tag: str, model_name: str, res: dict, save: str, stem: str, wall: float):
+    """One ``.npy`` and four ``.obj`` files a valid object, each OBJ equal to
+    the eval forward's masked mesh of that stage, and no kernel launch."""
+    import os
+
+    from meshrcnn_tpu_torch.data.serialization import load_mesh
+
+    out = res["out"]
+    valid = out.mesh_valid.cpu().numpy() if model_name == "Pix3D" else np.ones(1, bool)
+    objs = np.flatnonzero(valid).tolist()
+    files = sorted(os.listdir(save))
+    want = sorted([f"{stem}_voxel_obj{i}.npy" for i in objs]
+                  + [f"{stem}_mesh_stage{s_}_obj_{i}.obj" for i in objs for s_ in range(4)])
+    differ = []
+    vmask, fmask = out.mesh.verts_mask.cpu().numpy(), out.mesh.faces_mask.cpu().numpy()
+    faces = out.mesh.faces.cpu().numpy()
+    for s_ in range(4):
+        verts = out.stage_verts[s_].cpu().numpy()
+        for i in objs:
+            m = load_mesh(os.path.join(save, f"{stem}_mesh_stage{s_}_obj_{i}.obj"))
+            if not (np.array_equal(m.vertices, verts[i][vmask[i]])
+                    and np.array_equal(m.faces, faces[i][fmask[i]])):
+                differ.append(f"stage {s_} obj {i}")
+    print(f"[demo] {tag}: {len(objs)} valid objects, {len(files)} files in {wall:.3f} s; "
+          f"OBJs differing from the eval forward: {differ or 'none'}; launches {_counts()}")
+    if files != want or differ or _counts() != WANT_NONE:
+        _fail(f"{tag} demo: files {files}, want {want}; differing {differ}")
+
+
 def phase_demo(root: str):
     """``demo.run``, the demo below the image decode, on a synthetic ShapeNet
-    image (137x137) and a Pix3D image (224x224), each with its ``phase_cli``
-    checkpoint and the flags of that checkpoint's settings: one ``.npy`` and
-    four ``.obj`` files a valid object, each OBJ read back equal to the eval
-    forward's masked vertices and faces. No kernel launches (eval, no metrics)."""
+    image (137x137) and a Pix3D image (224x224), then ``demo.main`` on image
+    files, its decode included (``image_io``, no Pillow): a PNG render of
+    ``phase_real_data``'s mini-ShapeNet, decoded equal to the dataset's
+    sample, and a 300x200 Pix3D PNG written by ``image_io.write_png``,
+    resized to 224x224 by Pillow's bilinear filter. Each with its
+    ``phase_cli`` checkpoint and the flags of that checkpoint's settings: one
+    ``.npy`` and four ``.obj`` files a valid object, each OBJ read back equal
+    to the eval forward's masked vertices and faces. No kernel launches (eval,
+    no metrics)."""
     import os
 
     import torch
 
     from meshrcnn_tpu_torch import demo, harness
-    from meshrcnn_tpu_torch.data.serialization import load_mesh
+    from meshrcnn_tpu_torch.data import datasets, image_io
 
     for model_name, images in (
             ("ShapeNet", harness.SyntheticBatch(np.random.RandomState(4), B=1).images),
             ("Pix3D", harness.SyntheticPix3DBatch(np.random.RandomState(4), B=1).images)):
-        path, s = _cli_checkpoint(root, model_name)
-        flags = ["--model", model_name, "--imagePath", f"{model_name.lower()}.png",
-                 "--savePath", os.path.join(root, "demo", model_name), "--modelPath", path,
-                 "--threshold", repr(s["cubify_threshold"]), "--featDim",
-                 str(s["vertex_feature_dim"]), "-nr", str(s["num_refinement_stages"]),
-                 "--vert_capacity", str(s["vert_capacity"]), "--face_capacity",
-                 str(s["face_capacity"]), "--edge_capacity", str(s["edge_capacity"])]
-        if model_name == "Pix3D":
-            flags += ["--img_size", "224"] + (["--mesh_feature_norm"]
-                                              if s["mesh_feature_norm"] else [])
-        elif s["residual"]:
-            flags.append("--residual")
+        save = os.path.join(root, "demo", model_name)
         _reset_counts()
         t0 = time.perf_counter()
-        res = demo.run(demo.parser.parse_args(flags), images)
+        res = demo.run(demo.parser.parse_args(_demo_flags(
+            root, model_name, f"{model_name.lower()}.png", save)), images)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        out = res["out"]
-        valid = (out.mesh_valid.cpu().numpy() if model_name == "Pix3D"
-                 else np.ones(1, bool))
-        objs = np.flatnonzero(valid).tolist()
-        files = sorted(os.listdir(os.path.join(root, "demo", model_name)))
-        stem = f"{model_name.lower()}"
-        want = sorted([f"{stem}_voxel_obj{i}.npy" for i in objs]
-                      + [f"{stem}_mesh_stage{s_}_obj_{i}.obj" for i in objs for s_ in range(4)])
-        differ = []
-        vmask, fmask = out.mesh.verts_mask.cpu().numpy(), out.mesh.faces_mask.cpu().numpy()
-        faces = out.mesh.faces.cpu().numpy()
-        for s_ in range(4):
-            verts = out.stage_verts[s_].cpu().numpy()
-            for i in objs:
-                m = load_mesh(os.path.join(root, "demo", model_name,
-                                           f"{stem}_mesh_stage{s_}_obj_{i}.obj"))
-                if not (np.array_equal(m.vertices, verts[i][vmask[i]])
-                        and np.array_equal(m.faces, faces[i][fmask[i]])):
-                    differ.append(f"stage {s_} obj {i}")
-        print(f"[demo] {model_name}: {len(objs)} valid objects, {len(files)} files in "
-              f"{wall:.3f} s; OBJs differing from the eval forward: {differ or 'none'}; "
-              f"launches {_counts()}")
-        if files != want or differ or _counts() != WANT_NONE:
-            _fail(f"{model_name} demo: files {files}, want {want}; differing {differ}")
+        _check_demo(model_name, model_name, res, save, model_name.lower(),
+                    time.perf_counter() - t0)
+
+    shapenet_png = os.path.join(root, "mini_shapenet", "ShapeNetRendering", "02691156",
+                                "model0000", "rendering", "00.png")
+    pix3d_png = os.path.join(root, "pix3d_300x200.png")
+    image_io.write_png(pix3d_png, np.random.RandomState(5).randint(0, 256, (200, 300, 3),
+                                                                   dtype=np.uint8))
+    for model_name, path in (("ShapeNet", shapenet_png), ("Pix3D", pix3d_png)):
+        save = os.path.join(root, "demo_files", model_name)
+        is_pix3d = model_name == "Pix3D"
+        decoded = demo.decode_image(path, is_pix3d, 224)
+        want = (image_io.resize_bilinear(image_io.to_rgb(path), (224, 224)).astype(np.float32)
+                / 255.0 if is_pix3d else datasets._load_image(path))[None]
+        print(f"[demo] {model_name} file {os.path.basename(path)} decoded to "
+              f"{decoded.shape} {decoded.dtype}")
+        if not np.array_equal(decoded, want):
+            _fail(f"{model_name} demo: {path} decoded to another image")
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = demo.main(_demo_flags(root, model_name, path, save))
+        torch.cuda.synchronize()
+        _check_demo(f"{model_name} from {os.path.basename(path)}", model_name, res, save,
+                    os.path.splitext(os.path.basename(path))[0], time.perf_counter() - t0)
 
 
 def phase_bench(kernels, card: str):
@@ -2898,6 +3099,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         timed(phase_multi_step, kernels, card, root)
         timed(phase_cli, kernels, root)
+        timed(phase_real_data, kernels, card, root)
         timed(phase_api, kernels, root)
         timed(phase_demo, root)
         timed(phase_dp, kernels, card, root)

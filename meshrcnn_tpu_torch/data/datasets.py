@@ -8,8 +8,9 @@ the reference's seed-42 shuffled train/test split exactly
 (dataloader.py:297-330). ``SyntheticDataset`` gives deterministic data for
 tests and benches without the 100GB+ downloads.
 
-Everything here is host numpy. PIL is imported only where an image file is
-decoded or resized, so the synthetic path at the CLIs' sizes never needs it.
+Everything here is host numpy. Image files are decoded and resized by
+``data/image_io`` (PNG, Pillow's filters, no Pillow), meshes and voxels by the
+native decoder of ``data/serialization``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 from meshrcnn_tpu_torch.core.batch import Batch
 from meshrcnn_tpu_torch.core.config import CapacityConfig
 from meshrcnn_tpu_torch.core.mesh import pad_mesh_np
+from meshrcnn_tpu_torch.data import image_io
 from meshrcnn_tpu_torch.data.process import normalize_mesh, resample_voxels
 from meshrcnn_tpu_torch.data.serialization import Mesh, load_mesh, load_voxels
 
@@ -47,9 +49,7 @@ class Sample:
 
 
 def _load_image(path: str) -> np.ndarray:
-    import PIL.Image
-    img = PIL.Image.open(path).convert("RGB")
-    arr = np.asarray(img, dtype=np.float32)
+    arr = image_io.to_rgb(path).astype(np.float32)
     if arr.max() > 1.0:
         arr = arr / 255.0
     return arr
@@ -96,9 +96,12 @@ class pix3dDataset:
 
         The reference (dataloader.py:111-116) decodes each image and keeps
         the 3-channel ones, skipping unreadable files; a different kept set
-        would shift every index of the seed-42 split. The PIL mode check reads
-        the header; ``img.load()`` then decodes the body, so a truncated file
-        is skipped as the reference's ``mpimg.imread`` would skip it.
+        would shift every index of the seed-42 split. The mode check reads
+        the header (Pillow's mode name, ``image_io.image_mode``); the body of
+        an "RGB" image is then decoded, so a missing, truncated or corrupt
+        file is skipped as the reference's ``mpimg.imread`` would skip it. A
+        file ``image_io`` does not decode (JPEG, 16-bit, interlaced) raises:
+        dropping it would change the kept set without a word.
 
         Decoding ~10k images takes minutes, so the kept list is cached in
         ``.pix3d_scan_cache.json`` (the JAX package's file and format), keyed
@@ -136,15 +139,14 @@ class pix3dDataset:
             if isinstance(cache, dict) and cache.get("key") == cache_key:
                 ok = set(cache.get("kept_imgs", ()))
                 return [p for p in manifest if p["img"] in ok]
-        import PIL.Image
         kept = []
         for p in manifest:
+            path = os.path.join(self.root, p["img"])
             try:
-                with PIL.Image.open(os.path.join(self.root, p["img"])) as img:
-                    if img.mode != "RGB":
-                        continue
-                    img.load()
-            except Exception:     # any file PIL cannot decode is dropped, as the reference drops it
+                if image_io.image_mode(path) != "RGB":
+                    continue
+                image_io.read_png(path)
+            except OSError:       # missing or damaged: dropped, as the reference drops it
                 continue
             kept.append(p)
         payload = {"key": cache_key, "kept_imgs": [p["img"] for p in kept]}
@@ -162,13 +164,11 @@ class pix3dDataset:
         return len(self.records)
 
     def __getitem__(self, idx: int) -> Sample:
-        import PIL.Image
         p = self.records[idx]
         image = _load_image(os.path.join(self.root, p["img"]))
         voxels = load_voxels(os.path.join(self.root, p["voxel"]))
         mesh = load_mesh(os.path.join(self.root, p["model"]))
-        mask = np.asarray(PIL.Image.open(os.path.join(self.root, p["mask"])),
-                          dtype=np.float32)
+        mask = image_io.read_png(os.path.join(self.root, p["mask"]))[0].astype(np.float32)
         if mask.ndim == 3:
             mask = mask[..., 0]
         boxes = np.asarray(p["bbox"], dtype=np.float32).reshape(1, 4)
@@ -249,17 +249,16 @@ def _resize_sample(s: Sample, size: int) -> Sample:
     aspect ratio, then zero-pad bottom and right to the square. Boxes scale by
     the one factor and are clipped to [0, size] (torchvision's
     clip_boxes_to_image allows x2 == size); masks ride the same transform.
-    A sample already at the size returns as it is, without PIL.
+    The image is resized as uint8 by Pillow's bilinear filter and the mask by
+    its nearest one (``image_io``). A sample already at the size returns as it is.
     """
     h, w = s.image.shape[:2]
     if h == size and w == size:
         return s
-    import PIL.Image
     scale = size / max(h, w)
     nw, nh = max(1, round(w * scale)), max(1, round(h * scale))
-    img = PIL.Image.fromarray((np.clip(s.image, 0, 1) * 255).astype(np.uint8))
-    resized = np.asarray(img.resize((nw, nh), PIL.Image.BILINEAR),
-                         dtype=np.float32) / 255.0
+    img = (np.clip(s.image, 0, 1) * 255).astype(np.uint8)
+    resized = image_io.resize_bilinear(img, (nw, nh)).astype(np.float32) / 255.0
     image = np.zeros((size, size, 3), dtype=np.float32)
     image[:nh, :nw] = resized
     boxes = s.boxes
@@ -267,9 +266,8 @@ def _resize_sample(s: Sample, size: int) -> Sample:
         boxes = np.clip(boxes * np.float32(scale), 0, size).astype(np.float32)
     mask = s.mask
     if mask is not None:
-        m = PIL.Image.fromarray((np.asarray(mask) > 0.5).astype(np.uint8) * 255)
-        mr = (np.asarray(m.resize((nw, nh), PIL.Image.NEAREST)) > 127
-              ).astype(np.float32)
+        m = (np.asarray(mask) > 0.5).astype(np.uint8) * 255
+        mr = (image_io.resize_nearest(m, (nw, nh)) > 127).astype(np.float32)
         mask = np.zeros((size, size), dtype=np.float32)
         mask[:nh, :nw] = mr
     return Sample(image=image, voxels=s.voxels, mesh=s.mesh, label=s.label,
@@ -367,7 +365,7 @@ class DataLoader:
             for chunk in chunks:
                 yield self._load(chunk)
             return
-        # Threaded prefetch: file reads, PIL decodes and numpy release the
+        # Threaded prefetch: file reads, native decodes and numpy release the
         # interpreter lock, so up to ``workers`` upcoming batches collate while
         # the device runs the current step. The lookahead is bounded and the
         # order is kept.

@@ -1,0 +1,259 @@
+"""PNG reading and writing and Pillow's two resampling filters, without Pillow
+(the card's machine has none).
+
+    pixels, mode = read_png(path)      # np.asarray(PIL.Image.open(path)), and its mode
+    rgb = to_rgb(path)                 # PIL.Image.open(path).convert("RGB")
+    write_png(path, uint8 array)
+    resize_bilinear(pixels, (w, h))    # Image.resize((w, h), BILINEAR)
+    resize_nearest(pixels, (w, h))     # Image.resize((w, h), NEAREST)
+
+Only numpy, ``zlib``, ``struct`` and the native scanline unfilter
+(``data/fastio.png_unfilter``). ``read_png`` decodes 8-bit grey, grey + alpha,
+RGB, RGBA and palette images and 1, 2 and 4-bit grey and palette images, as
+Pillow does: palette images give their indices, 1-bit grey gives booleans and
+2- and 4-bit grey are scaled to 0-255 (Pillow's modes "L;2" and "L;4").
+
+Errors: a file this module does not decode raises ``ValueError`` naming the
+file and the feature (16-bit samples, Adam7 interlacing, JPEG, GIF, BMP, TIFF
+and WebP by their magic bytes); a file that is not a readable image (no PNG
+signature, a bad chunk CRC, a broken zlib stream, too little data) raises
+``DamagedImageError``, an ``OSError`` like Pillow's own for such files.
+
+The resizes are Pillow's (libImaging/Resample.c and the NEAREST branch of
+``_resize``, which goes through ImagingScaleAffine in Geometry.c), reproduced
+bit for bit: BILINEAR is a separable convolution with a triangle filter whose
+support widens by the downscale factor. For 8-bit images its coefficients are
+made fixed-point at 22 bits and the horizontal pass is rounded to uint8 before
+the vertical one; for float32 images (Pillow's mode "F") the coefficients stay
+float64 and each pass is stored as float32. NEAREST takes the source pixel of
+each output pixel's centre, stepping the source coordinate by repeated
+addition as Pillow does.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Tuple
+
+import numpy as np
+
+from meshrcnn_tpu_torch.data import fastio
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# (offset, magic bytes, name) of the formats this module recognises and does not decode
+_OTHER_FORMATS = ((0, b"\xff\xd8\xff", "JPEG"), (0, b"GIF8", "GIF"), (0, b"BM", "BMP"),
+                  (0, b"II*\x00", "TIFF"), (0, b"MM\x00*", "TIFF"), (8, b"WEBP", "WebP"))
+# (bit depth, colour type) -> Pillow's mode of the image
+_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16",
+          (8, 2): "RGB", (16, 2): "RGB",
+          (1, 3): "P", (2, 3): "P", (4, 3): "P", (8, 3): "P",
+          (8, 4): "LA", (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PRECISION_BITS = 32 - 8 - 2          # Resample.c's fixed point for 8-bit images
+
+
+class DamagedImageError(OSError):
+    """The file is not a readable image: Pillow could not decode it either."""
+
+
+def _header(path: str, data: bytes) -> Tuple[int, int, int, int, int]:
+    """(width, height, bit depth, colour type, interlace) of a PNG's IHDR."""
+    if not data.startswith(PNG_SIGNATURE):
+        for offset, magic, name in _OTHER_FORMATS:
+            if data[offset:offset + len(magic)] == magic:
+                raise ValueError(f"{path}: {name} is not supported; only PNG is decoded")
+        raise DamagedImageError(f"{path}: not an image file (no PNG signature)")
+    if len(data) < 33 or data[12:16] != b"IHDR":
+        raise DamagedImageError(f"{path}: truncated or missing IHDR chunk")
+    width, height, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
+    if (depth, ctype) not in _MODES or width == 0 or height == 0:
+        raise DamagedImageError(f"{path}: bit depth {depth} with colour type {ctype}, "
+                                f"size {width}x{height}")
+    return width, height, depth, ctype, interlace
+
+
+def image_mode(path: str) -> str:
+    """Pillow's mode of the image file, from its header alone."""
+    with open(path, "rb") as f:
+        data = f.read(33)
+    _, _, depth, ctype, _ = _header(path, data)
+    return _MODES[depth, ctype]
+
+
+def _decode(path: str):
+    """(pixels as Pillow gives them, mode, palette [n, 3] uint8 or None)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    width, height, depth, ctype, interlace = _header(path, data)
+    if depth == 16:
+        raise ValueError(f"{path}: 16-bit samples are not supported")
+    if interlace:
+        raise ValueError(f"{path}: Adam7-interlaced PNG is not supported")
+    idat, palette, pos = [], None, 8
+    while True:
+        if pos + 12 > len(data):
+            raise DamagedImageError(f"{path}: truncated before IEND")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length or pos + 12 + length > len(data):
+            raise DamagedImageError(f"{path}: truncated {kind!r} chunk")
+        crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise DamagedImageError(f"{path}: bad CRC in the {kind!r} chunk")
+        if kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if ctype == 3 and palette is None:
+        raise DamagedImageError(f"{path}: palette image without a PLTE chunk")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as err:
+        raise DamagedImageError(f"{path}: broken image data ({err})") from None
+    channels = _CHANNELS[ctype]
+    stride = (width * channels * depth + 7) // 8
+    try:
+        rows = fastio.png_unfilter(raw, height, stride, channels * depth // 8)
+    except ValueError as err:
+        raise DamagedImageError(f"{path}: {err}") from None
+    mode = _MODES[depth, ctype]
+    if depth == 8:
+        pixels = rows.reshape(height, width, channels)
+        return (pixels[..., 0] if channels == 1 else pixels), mode, palette
+    # 1, 2 or 4 bits a sample, most significant first, each row padded to a byte
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(height, -1)
+    samples = np.ascontiguousarray(samples[:, :width])
+    if mode == "1":
+        return samples.astype(bool), mode, palette
+    if mode == "L":
+        return samples * np.uint8(255 // ((1 << depth) - 1)), mode, palette
+    return samples, mode, palette
+
+
+def read_png(path: str) -> Tuple[np.ndarray, str]:
+    """(``np.asarray(PIL.Image.open(path))``, Pillow's mode name) of a PNG file."""
+    pixels, mode, _ = _decode(path)
+    return pixels, mode
+
+
+def to_rgb(path: str) -> np.ndarray:
+    """``np.asarray(PIL.Image.open(path).convert("RGB"))``: grey replicated,
+    alpha dropped, palette indices looked up (indices past the palette black)."""
+    pixels, mode, palette = _decode(path)
+    if mode == "RGB":
+        return pixels
+    if mode == "RGBA":
+        return np.ascontiguousarray(pixels[..., :3])
+    if mode == "P":
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette[:256]
+        return table[pixels]
+    grey = pixels[..., 0] if mode == "LA" else pixels
+    if mode == "1":
+        grey = grey.astype(np.uint8) * np.uint8(255)
+    return np.repeat(grey[..., None], 3, axis=-1)
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """Write a uint8 [H, W] (grey), [H, W, 2] (grey + alpha), [H, W, 3] (RGB)
+    or [H, W, 4] (RGBA) array as an 8-bit PNG: filter 0 on every row, zlib."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, not {pixels.dtype}")
+    if pixels.ndim == 2:
+        pixels = pixels[..., None]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}.get(pixels.shape[-1]) if pixels.ndim == 3 else None
+    if ctype is None:
+        raise ValueError(f"write_png takes [H, W] or [H, W, 1-4] pixels, not {pixels.shape}")
+    height, width = pixels.shape[:2]
+    rows = np.zeros((height, 1 + width * pixels.shape[-1]), np.uint8)   # filter type 0
+    rows[:, 1:] = pixels.reshape(height, -1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """Resample.c ``precompute_coeffs`` with the triangle filter: per output
+    pixel, the first input pixel of its window [out], the window's length
+    [out] and its float64 weights [out, ksize], zero past the window's end."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xlen = np.minimum(np.trunc(center + support + 0.5), in_size).astype(np.int64) - xmin
+    x = np.arange(ksize)
+    t = np.abs(((x[None] + xmin[:, None]).astype(np.float64) - center[:, None] + 0.5)
+               * (1.0 / filterscale))
+    w = np.where((t < 1.0) & (x[None] < xlen[:, None]), 1.0 - t, 0.0)
+    ww = np.zeros(out_size)
+    for j in range(ksize):                 # summed in the C loop's order
+        ww = ww + w[:, j]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    return xmin, xlen, w
+
+
+def _resample_axis(pixels: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of ImagingResample along ``axis`` (1 horizontal, 0 vertical):
+    native for uint8 images, numpy for float32 ones."""
+    shape = pixels.shape
+    xmin, xlen, w = _bilinear_coeffs(shape[axis], out_size)
+    outer, inner = int(np.prod(shape[:axis])), int(np.prod(shape[axis + 1:]))
+    flat = pixels.reshape(outer, shape[axis], inner)
+    if pixels.dtype == np.uint8:
+        k = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS))
+        out = fastio.resample_u8(flat, xmin, xlen, k.astype(np.int32))
+    else:
+        index = np.minimum(xmin[:, None] + np.arange(w.shape[1])[None], shape[axis] - 1)
+        acc = np.zeros((outer, out_size, inner), np.float64)
+        for j in range(w.shape[1]):        # float64 sums in the C loop's order
+            acc = acc + flat[:, index[:, j]].astype(np.float64) * w[None, :, j, None]
+        out = acc.astype(np.float32)
+    return out.reshape(shape[:axis] + (out_size,) + shape[axis + 1:])
+
+
+def resize_bilinear(pixels: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``np.asarray(Image.fromarray(pixels).resize(size, Image.BILINEAR))`` for
+    uint8 [H, W] or [H, W, C] pixels and float32 [H, W] ones; ``size`` is
+    (width, height)."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype not in (np.uint8, np.float32) or pixels.ndim not in (2, 3):
+        raise ValueError(f"resize_bilinear takes uint8 or float32 images, not "
+                         f"{pixels.dtype} {pixels.shape}")
+    width, height = size
+    out = pixels
+    if width != pixels.shape[1]:
+        out = _resample_axis(out, width, 1)
+    if height != pixels.shape[0]:
+        out = _resample_axis(out, height, 0)
+    return out.copy() if out is pixels else out
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """ImagingScaleAffine's source pixel of each output pixel: the coordinate
+    starts at half a step and grows by one step an output pixel."""
+    step = in_size / out_size
+    coords = np.full(out_size, step)
+    coords[0] = 0.0 + step * 0.5
+    coords = np.add.accumulate(coords)      # sequential sums, as the C loop adds
+    return np.minimum(coords.astype(np.int64), in_size - 1)
+
+
+def resize_nearest(pixels: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``np.asarray(Image.fromarray(pixels).resize(size, Image.NEAREST))``;
+    ``size`` is (width, height)."""
+    pixels = np.asarray(pixels)
+    width, height = size
+    return pixels[_nearest_index(pixels.shape[0], height)[:, None],
+                  _nearest_index(pixels.shape[1], width)[None, :]]

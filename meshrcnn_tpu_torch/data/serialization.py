@@ -3,15 +3,21 @@
 
 The same formats and conventions: OBJ faces are written 1-based
 (serialization.py:35-37) and read back 0-based, polygons strip-triangulated
-(117-121, 129-132); a binvox payload is (value, count) run pairs, expanded by
-``np.repeat``, reshaped to its dims and transposed xzy -> xyz (44-92). The
-decoders are numpy only.
+(117-121, 129-132); a binvox payload is (value, count) run pairs, expanded,
+reshaped to its dims and transposed xzy -> xyz (44-92).
+
+``load_mesh`` and ``read_binvox`` parse through the port's native decoder
+(``data/fastio.py``), as the JAX package's do through its own; the Python
+and numpy decoders stay as ``load_mesh_plain`` and ``read_binvox_plain``, the
+references the tests hold the native ones to.
 """
 from __future__ import annotations
 
 from collections import namedtuple
 
 import numpy as np
+
+from meshrcnn_tpu_torch.data import fastio
 
 Mesh = namedtuple("Mesh", ["vertices", "faces"])
 
@@ -37,8 +43,25 @@ def save_mesh(vertices, faces, filename: str) -> None:
             f.write(f"f {face[0]} {face[1]} {face[2]}\n")
 
 
+def _mesh_of(vertices: np.ndarray, triangles: np.ndarray, filename: str) -> Mesh:
+    """1-based faces to 0-based; any other first index is an error."""
+    if triangles.size and triangles.min() == 1:
+        triangles = triangles - 1
+    if triangles.size and triangles.min() != 0:
+        raise ValueError(f"{filename}: face indices start at {triangles.min()}, not 0 or 1")
+    return Mesh(vertices, triangles)
+
+
 def load_mesh(filename: str) -> Mesh:
-    """Parse an OBJ file; polygons are strip-triangulated (reference: 109-138)."""
+    """Parse an OBJ file natively; polygons are strip-triangulated (reference: 109-138)."""
+    filename = filename.replace(".binvox", ".obj")
+    with open(filename, "rb") as f:
+        vertices, triangles = fastio.parse_obj(f.read())
+    return _mesh_of(vertices, triangles, filename)
+
+
+def load_mesh_plain(filename: str) -> Mesh:
+    """``load_mesh`` by the Python line parser (the reference's loop)."""
     filename = filename.replace(".binvox", ".obj")
     vertices = []
     triangles = []
@@ -52,13 +75,8 @@ def load_mesh(filename: str) -> Mesh:
             elif parts[0] == "v":
                 # runs of spaces give empty tokens ("v  1.9 0.1 0.5")
                 vertices.append([float(c) for c in parts[1:] if c][:3])
-    vertices = np.asarray(vertices, dtype=np.float32)
-    triangles = np.asarray(triangles, dtype=np.int64)
-    if triangles.size and triangles.min() == 1:
-        triangles = triangles - 1
-    if triangles.size and triangles.min() != 0:
-        raise ValueError(f"{filename}: face indices start at {triangles.min()}, not 0 or 1")
-    return Mesh(vertices, triangles)
+    return _mesh_of(np.asarray(vertices, dtype=np.float32).reshape(-1, 3),
+                    np.asarray(triangles, dtype=np.int64).reshape(-1, 3), filename)
 
 
 def _read_binvox_header(fp):
@@ -70,15 +88,24 @@ def _read_binvox_header(fp):
     return dims, translate, scale
 
 
-def read_binvox(fp, fix_coords: bool = True) -> np.ndarray:
-    """Decode the binvox RLE payload into a dims^3 int grid (reference: 57-92)."""
-    dims, _, _ = _read_binvox_header(fp)
-    raw = np.frombuffer(fp.read(), dtype=np.uint8)
-    values, counts = raw[::2], raw[1::2]
-    data = np.repeat(values, counts).astype(bool).reshape(dims)
+def _grid_of(flat: np.ndarray, dims, fix_coords: bool) -> np.ndarray:
+    data = flat.astype(bool).reshape(dims)
     if fix_coords:
         data = np.transpose(data, (0, 2, 1))  # xzy -> xyz
     return 1 * data
+
+
+def read_binvox(fp, fix_coords: bool = True) -> np.ndarray:
+    """Decode the binvox RLE payload natively into a dims^3 int grid (reference: 57-92)."""
+    dims, _, _ = _read_binvox_header(fp)
+    return _grid_of(fastio.decode_rle(fp.read(), int(np.prod(dims))), dims, fix_coords)
+
+
+def read_binvox_plain(fp, fix_coords: bool = True) -> np.ndarray:
+    """``read_binvox`` by ``np.repeat`` of the run pairs."""
+    dims, _, _ = _read_binvox_header(fp)
+    raw = np.frombuffer(fp.read(), dtype=np.uint8)
+    return _grid_of(np.repeat(raw[::2], raw[1::2]), dims, fix_coords)
 
 
 def load_voxels(path: str) -> np.ndarray:

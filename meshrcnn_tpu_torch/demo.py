@@ -15,9 +15,9 @@ through ``load_state_partial`` (another optimizer, a voxel-only checkpoint),
 and it stops when nothing loads. Runs on the card unless ``--device cpu``;
 without a card it raises.
 
-``main`` decodes the image (PIL, imported there only; Pix3D images resized to
-``--img_size``) and hands the [1, H, W, 3] array to ``run``, which builds the
-model, runs it and writes the files.
+``main`` decodes the image (``data/image_io``: PNG, no Pillow; Pix3D images
+resized to ``--img_size`` by Pillow's bilinear filter) and hands the [1, H,
+W, 3] array to ``run``, which builds the model, runs it and writes the files.
 """
 from __future__ import annotations
 
@@ -55,12 +55,12 @@ BACKBONE_DTYPE = "bfloat16"
 def decode_image(path: str, is_pix3d: bool, img_size: int) -> np.ndarray:
     """The image file as a [1, H, W, 3] float32 array in [0, 1]; Pix3D images
     are resized to ``img_size`` x ``img_size`` (bilinear)."""
-    import PIL.Image
+    from meshrcnn_tpu_torch.data import image_io
 
-    img = PIL.Image.open(path).convert("RGB")
+    img = image_io.to_rgb(path)
     if is_pix3d:
-        img = img.resize((img_size, img_size), PIL.Image.BILINEAR)
-    arr = np.asarray(img, dtype=np.float32)
+        img = image_io.resize_bilinear(img, (img_size, img_size))
+    arr = img.astype(np.float32)
     if arr.max() > 1.0:
         arr = arr / 255.0
     return arr[None]

@@ -6,8 +6,8 @@ confusion F-beta, box IoU, ranked AP and the AUC that scores AP_mesh (with the
 trapezoid rule written out; the card's machine has no scikit-learn), and a
 batched torch form of the device-side mask paste. The single-sample helpers
 for the API's and the demo's users are here too: ``point_cloud_f1`` (one K2
-launch for clouds on the card), ``paste_mask_in_image`` (PIL, imported when
-called), ``calc_precision_box`` and ``calc_precision_mask``.
+launch for clouds on the card), ``paste_mask_in_image`` (Pillow's bilinear
+filter, by ``data/image_io``), ``calc_precision_box`` and ``calc_precision_mask``.
 """
 from __future__ import annotations
 
@@ -50,15 +50,14 @@ def point_cloud_f1(pred_points, gt_points, tau: float = 0.1):
 def paste_mask_in_image(mask: np.ndarray, box, height: int, width: int,
                         threshold: float = 0.5) -> np.ndarray:
     """Paste a K x K RoI mask of probabilities into a [height, width] binary
-    int32 image at its rounded, clamped box, resized by PIL's bilinear filter
-    (torchvision's paste semantics, used before AP_mask)."""
-    from PIL import Image
+    int32 image at its rounded, clamped box, resized by Pillow's bilinear
+    filter on float32 (torchvision's paste semantics, used before AP_mask)."""
+    from meshrcnn_tpu_torch.data.image_io import resize_bilinear
     x1, y1, x2, y2 = [int(round(float(v))) for v in np.asarray(box).reshape(4)]
     x1, y1 = max(x1, 0), max(y1, 0)
     x2, y2 = min(max(x2, x1 + 1), width), min(max(y2, y1 + 1), height)
     w, h = x2 - x1, y2 - y1
-    resized = np.asarray(Image.fromarray(np.asarray(mask, dtype=np.float32))
-                         .resize((w, h), Image.BILINEAR))
+    resized = resize_bilinear(np.asarray(mask, dtype=np.float32), (w, h))
     out = np.zeros((height, width), dtype=np.int32)
     out[y1:y2, x1:x2] = (resized > threshold).astype(np.int32)
     return out

@@ -144,14 +144,17 @@ def test_letterbox_equals_jax():
 
 def test_synthetic_pix3d_path_never_imports_pil(monkeypatch):
     """The card's machine has no Pillow: a synthetic Pix3D batch at the CLI's
-    size must collate without importing it."""
+    size must collate without importing it, and a letterbox to another size
+    (``image_io``'s resizes) runs without it too, equal to the JAX package's
+    (Pillow's) letterbox."""
+    want = jd._resize_sample(jd.SyntheticDataset(n=4, image_size=64, num_voxels=16,
+                                                 num_classes=10, pix3d=True)[0], 32)
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
     ds = pd.SyntheticDataset(n=4, image_size=64, num_voxels=16, num_classes=10, pix3d=True)
     loader = pd.dataLoader(ds, 2, 24, CapacityConfig(**CAPS), image_size=64, workers=2)
     assert [b.images.shape for b in loader] == [(2, 64, 64, 3)] * 2
-    with pytest.raises(ImportError):
-        pd._resize_sample(ds[0], 32)
+    _equal(dataclasses.asdict(pd._resize_sample(ds[0], 32)), dataclasses.asdict(want))
 
 
 @pytest.mark.parametrize("workers", [0, 3])
