@@ -35,8 +35,9 @@ Phases, each of which fails the run:
      loader threads, native against plain parsers, files against synthetic
      data (printed); and the eval metrics of both models equal in every bit
      over two runs; multi-step dispatch (``phase_multi_step``): a
-     ShapeNet group of 4 against 4 single steps within 4x the card's own
-     spread (K1 x 12), the inner steps of a group under
+     ShapeNet group of 4 against 4 single steps, in float64 within 4x the
+     card's own spread, in float32 within 4x float32's spread from the
+     float64 steps (K1 x 12 a group), the inner steps of a group under
      ``torch.cuda.set_sync_debug_mode("error")`` with face normals and with
      the estimator, a NaN batch inside a group skipped (``grads_finite``
      0.75, Adam's count 3), a Pix3D group (K1 x 6) whose host reads are its
@@ -63,9 +64,19 @@ Phases, each of which fails the run:
      backbone checkpoint loaded whole, then a train CLI step from it), and
      the tools (``download_dataset`` rendering with the port's cubify on the
      card, ``point_cloud_f1`` through K2 equal in every bit to the CPU's,
-     ``time_this``);
+     ``time_this``); and the parity recipes and tools of ``tools/`` at a cut
+     (``phase_recipes``): ``parity_recipes shapenet`` on a generated
+     12-model mini-ShapeNet (phase A 1 epoch voxel-only, B 1 epoch from A,
+     C the held-out eval with ``--knn_normals``: K1 x 4, K3 x 6 a batch),
+     ``pix3d`` on 16 samples (K1 x 3, K3 x 6 a step), ``pix3d_detection_scale``
+     on 20 and ``pix3d_finetune --mode frozen`` from its checkpoint (every
+     ``backbone.*`` parameter equal in every bit), ``overfit_detector`` for
+     20 steps and both quantify tools at n=2048 (K2, K3, K4), every
+     number finite and every launch count exact;
   4. run small models on the card and on the CPU with the same weights: the
-     ShapeNet and Pix3D eval forwards, one ShapeNet and one Pix3D train step,
+     ShapeNet and Pix3D eval forwards (the Pix3D one in float64 within 1e-4
+     of scale, in float32 within that plus 4x float32's spread from float64
+     on the CPU), one ShapeNet and one Pix3D train step,
      and the backward of each module and loss the steps differentiate through
      (gradients within 1e-4 of each tensor's scale in float32, 1e-9 in float64),
      the tiny Pix3D step with its mesh branch in float64 among them.
@@ -791,6 +802,15 @@ def _ms_state(model, sd0, config):
     return create_train_state(model, config)
 
 
+def _float64_batch(batch):
+    """A host batch with its images and ground-truth vertices in float64."""
+    import copy
+    out = copy.copy(batch)
+    out.images = np.asarray(batch.images, np.float64)
+    out.gt_verts = np.asarray(batch.gt_verts, np.float64)
+    return out
+
+
 def _ms_trees(model):
     sd = {k: v.detach().clone() for k, v in model.state_dict().items()
           if "num_batches" not in k}
@@ -822,23 +842,29 @@ def _ms_group(model, sd0, config, stacked, n, seed=11):
     return {k: v.item() for k, v in m.items()}, _ms_trees(model)[0], state
 
 
-def _ms_agree(tag, got, runs, model, floor: float = 1e-4):
-    """``got`` (metrics, state dict) against ``runs[0]`` within 4x the card's
-    spread between ``runs[0]`` and ``runs[1]`` plus ``floor`` of scale."""
+def _ms_agree(tag, got, runs, model, floor: float = 1e-4, control=None):
+    """``got`` (metrics, state dict) against ``runs[0]`` within 4x the spread
+    plus ``floor`` of scale. The spread is the card's between ``runs[0]`` and
+    ``runs[1]``; with a ``control`` (the same steps in float64) it is the
+    larger distance of the two runs from it: float32's own rounding on a
+    sound path, amplified as far as the path amplifies it."""
     import torch
-    (m0, sd0), (m1, sd1) = runs
-    gm, gsd = got
+    pairs = [(runs[1], runs[0])] if control is None else [(r, control) for r in runs]
+    what = "card spread" if control is None else "float32 spread"
+    (m0, sd0), (gm, gsd) = runs[0], got
     for k in m0:
-        d, spread = abs(gm[k] - m0[k]), abs(m1[k] - m0[k])
+        d = abs(gm[k] - m0[k])
+        spread = max(abs(a[0][k] - b[0][k]) for a, b in pairs)
         if not d <= 4.0 * spread + floor * max(abs(m0[k]), 1.0):
-            _fail(f"{tag}: metric {k} {gm[k]} against {m0[k]} (card spread {spread:.3e})")
+            _fail(f"{tag}: metric {k} {gm[k]} against {m0[k]} ({what} {spread:.3e})")
     out = []
     for name, keys in _ms_trees(model)[1].items():
-        d, spread = _distance(gsd, sd0, keys), _distance(sd1, sd0, keys)
+        d = _distance(gsd, sd0, keys)
+        spread = max(_distance(a[1], b[1], keys) for a, b in pairs)
         scale = _distance(sd0, {k: torch.zeros_like(sd0[k]) for k in keys}, keys)
-        out.append(f"{name} {d:.3e} (card spread {spread:.3e}, scale {scale:.3e})")
+        out.append(f"{name} {d:.3e} ({what} {spread:.3e}, scale {scale:.3e})")
         if not d <= 4.0 * spread + floor * max(scale, 1.0):
-            _fail(f"{tag}: {name} differ by {d:.3e}, card spread {spread:.3e}")
+            _fail(f"{tag}: {name} differ by {d:.3e}, {what} {spread:.3e}")
     return "; ".join(out)
 
 
@@ -880,16 +906,20 @@ def phase_multi_step(kernels, card: str, root: str):
     ``train --steps_per_dispatch``) at full width:
       (a) ShapeNet at ``harness.shapenet_train_setup``, B=3: one group of 4
           against 4 single steps from the same state on the same batches, each
-          step's draws from a generator seeded by its index: mean metrics, BN
-          statistics and parameters within 4x the card's own spread between
-          two runs of the 4 single steps plus 1e-4 of scale (training is not
-          bit-stable on the card); ``grads_finite`` 1; K1 exactly 12;
+          step's draws from a generator seeded by its index, in float64 and in
+          float32: mean metrics, BN statistics and parameters within 4x the
+          spread plus 1e-4 of scale (training is not bit-stable on the card).
+          In float64 the spread is the card's between two runs of the 4
+          single steps; in float32 it is float32's own, the larger distance
+          of those two runs from the float64 ones; ``grads_finite`` 1; K1
+          exactly 12 a group;
       (b) a group's inner steps under ``torch.cuda.set_sync_debug_mode
           ("error")``, with face normals and with the kNN + PCA estimator:
           any synchronising call fails the phase; a single step's host reads
           counted in "warn" mode;
-      (c) batch 2 of 4 with a NaN image: ``grads_finite`` 0.75, Adam's count
-          3, the state as (a) against 3 single steps that skip that batch;
+      (c) batch 2 of 4 with a NaN image, in both dtypes: ``grads_finite``
+          0.75, Adam's count 3, the state as (a) against 3 single steps that
+          skip that batch;
       (d) Pix3D at ``harness.pix3d_train_setup``, a group of 2: finite, K1 6;
           its host reads counted beside NMS's sweeps, one read each;
       (e) ``python -m meshrcnn_tpu_torch.train --steps_per_dispatch 4`` over
@@ -915,21 +945,34 @@ def phase_multi_step(kernels, card: str, root: str):
     dev = torch.device("cuda")
     k1 = k3 = 0
 
-    # (a) a group against single steps
+    # (a) a group against single steps, in float64 and in float32 (K1 takes
+    # float32 casts of the clouds in both). In float64 every run lies within
+    # rounding of the others. In float32, the dtype users train in, the bench
+    # model with flax's initial weights amplifies the rounding over the steps
+    # (the refine stages; a voxel near the cubify threshold may flip), far
+    # past the card's spread between two runs of the same steps; so the
+    # float32 group is held to float32's own spread: 4x the larger distance
+    # of two float32 runs of the single steps from the float64 ones
     model, config, host = harness.shapenet_train_setup(4, dev)
-    sd0 = copy.deepcopy(model.state_dict())
-    batches = [Batch.from_host(b, dev) for b in host]
-    stacked = Batch.from_host(stack_batches(host), dev)
-    singles = [_ms_singles(model, sd0, config, batches, range(4))[:2] for _ in range(2)]
-    _reset_counts()
-    gm, gsd, state = _ms_group(model, sd0, config, stacked, 4)
-    counts = _counts()
-    line = _ms_agree("(a) group", (gm, gsd), singles, model)
-    print(f"[multi] (a) ShapeNet group of 4 against 4 single steps: {line}; metrics "
-          f"{json.dumps(gm)}; launches {counts}")
-    if gm["grads_finite"] != 1.0 or counts != _k1_only(12) or state.step != 4:
-        _fail(f"(a): grads_finite {gm['grads_finite']}, launches {counts}, step {state.step}")
-    k1 += 12
+    runs = {}
+    for dtype in ("float64", "float32"):
+        m_ = copy.deepcopy(model).double() if dtype == "float64" else model
+        h_ = [_float64_batch(b) for b in host] if dtype == "float64" else host
+        sd0 = copy.deepcopy(m_.state_dict())
+        batches = [Batch.from_host(b, dev) for b in h_]
+        singles = [_ms_singles(m_, sd0, config, batches, range(4))[:2] for _ in range(2)]
+        _reset_counts()
+        gm, gsd, state = _ms_group(m_, sd0, config, Batch.from_host(stack_batches(h_), dev), 4)
+        counts = _counts()
+        control = runs["float64"]["singles"][0] if dtype == "float32" else None
+        line = _ms_agree(f"(a) {dtype} group", (gm, gsd), singles, m_, control=control)
+        print(f"[multi] (a) ShapeNet group of 4 against 4 single steps, {dtype}: {line}; "
+              f"metrics {json.dumps(gm)}; launches {counts}")
+        if gm["grads_finite"] != 1.0 or counts != _k1_only(12) or state.step != 4:
+            _fail(f"(a) {dtype}: grads_finite {gm['grads_finite']}, launches {counts}, "
+                  f"step {state.step}")
+        k1 += 12
+        runs[dtype] = dict(model=m_, host=h_, sd0=sd0, batches=batches, singles=singles)
 
     # (b) no synchronising call inside a group; a single step's host reads
     weights = LossWeights(voxel=1.0, chamfer=1.0, normal=0.1, edge=0.5)
@@ -966,25 +1009,34 @@ def phase_multi_step(kernels, card: str, root: str):
         k1, k3 = k1 + 12, k3 + counts["knn_topk_batched"]
     del est_model
 
-    # (c) a NaN image in batch 2 of 4
-    nan_host = copy.copy(host[1])
-    nan_host.images = host[1].images.copy()
-    nan_host.images[0, 0, 0, 0] = np.nan
-    singles = [_ms_singles(model, sd0, config, batches, (0, 2, 3)) for _ in range(2)]
-    _reset_counts()
-    gm, gsd, state = _ms_group(model, sd0, config,
-                               Batch.from_host(stack_batches([host[0], nan_host] + host[2:]),
-                                               dev), 4)
-    counts = _counts()
-    adam = {float(st["step"]) for st in state.optimizer.state.values()}
-    line = _ms_agree("(c) group with a NaN", ({"grads_finite": gm["grads_finite"]}, gsd),
-                     [({"grads_finite": 0.75}, s[1]) for s in singles], model)
-    print(f"[multi] (c) ShapeNet group of 4 with a NaN image in batch 2: grads_finite "
-          f"{gm['grads_finite']}, Adam's count {sorted(adam)}; against 3 single steps that "
-          f"skip it: {line}; launches {counts}")
-    if gm["grads_finite"] != 0.75 or adam != {3.0} or counts != _k1_only(12):
-        _fail(f"(c): grads_finite {gm['grads_finite']}, Adam's count {adam}, launches {counts}")
-    k1 += 12
+    # (c) a NaN image in batch 2 of 4, in both dtypes, held as (a)
+    for dtype in ("float64", "float32"):
+        r = runs[dtype]
+        nan_host = copy.copy(r["host"][1])
+        nan_host.images = r["host"][1].images.copy()
+        nan_host.images[0, 0, 0, 0] = np.nan
+        singles = [({"grads_finite": 0.75},
+                    _ms_singles(r["model"], r["sd0"], config, r["batches"], (0, 2, 3))[1])
+                   for _ in range(2)]
+        _reset_counts()
+        gm, gsd, state = _ms_group(r["model"], r["sd0"], config,
+                                   Batch.from_host(stack_batches([r["host"][0], nan_host]
+                                                                 + r["host"][2:]), dev), 4)
+        counts = _counts()
+        adam = {float(st["step"]) for st in state.optimizer.state.values()}
+        control = runs["float64"]["skipped"][0] if dtype == "float32" else None
+        line = _ms_agree(f"(c) {dtype} group with a NaN",
+                         ({"grads_finite": gm["grads_finite"]}, gsd), singles, r["model"],
+                         control=control)
+        print(f"[multi] (c) ShapeNet group of 4 with a NaN image in batch 2, {dtype}: "
+              f"grads_finite {gm['grads_finite']}, Adam's count {sorted(adam)}; against 3 "
+              f"single steps that skip it: {line}; launches {counts}")
+        if gm["grads_finite"] != 0.75 or adam != {3.0} or counts != _k1_only(12):
+            _fail(f"(c) {dtype}: grads_finite {gm['grads_finite']}, Adam's count {adam}, "
+                  f"launches {counts}")
+        k1 += 12
+        r["skipped"] = singles
+    del runs
 
     # (d) Pix3D
     p_model, p_config, p_host = harness.pix3d_train_setup(2, dev)
@@ -1517,54 +1569,86 @@ def _tiny_pix3d_model(voxel_only: bool = False):
                       voxel_only=voxel_only)
 
 
+def _pix3d_eval_errors(a, b, threshold: float, tag: str):
+    """The tiny Pix3D eval output ``a`` against ``b``, on the detections valid
+    in both: (box error px, {output: error relative to scale}, meshes
+    identical, meshes compared). Vertices are compared where cubify gave both
+    the same mesh; a slot whose mesh differs must hold a voxel within 1e-5 of
+    the threshold in ``b``, a decision the rounding may flip."""
+    import torch
+
+    ad, bd = a.detections, b.detections
+    v = bd.valid & ad.valid.cpu()
+    slots = b.mesh_valid & a.mesh_valid.cpu()
+
+    def rel(x, y):
+        x, y = x.cpu().double(), y.double()
+        return ((x - y).abs().max() / y.abs().max().clamp(min=1.0)).item() if y.numel() else 0.0
+
+    box_err = (ad.boxes.cpu()[v].double() - bd.boxes[v].double()).abs().max().item() \
+        if bool(v.any()) else 0.0
+    errs = {"scores": rel(ad.scores.cpu()[v], bd.scores[v]),
+            "mask_probs": rel(a.mask_probs.cpu()[v], b.mask_probs[v]),
+            "voxels": rel(a.voxels.cpu()[slots], b.voxels[slots])}
+    same_mesh = torch.tensor([torch.equal(a.mesh.faces[i].cpu(), b.mesh.faces[i])
+                              and torch.equal(a.mesh.verts_mask[i].cpu(), b.mesh.verts_mask[i])
+                              for i in range(slots.shape[0])]) & slots
+    for i in torch.nonzero(slots & ~same_mesh).flatten().tolist():
+        near = (b.voxels[i] - threshold).abs().min().item()
+        print(f"[small pix3d] {tag} slot {i}: cubify meshes differ; nearest voxel to the "
+              f"threshold {near:.2e}")
+        if not near < 1e-5:
+            _fail(f"{tag}: slot {i}'s cubify mesh differs")
+    for s, (x, y) in enumerate(zip(a.stage_verts, b.stage_verts)):
+        errs[f"stage {s} verts"] = rel(x.cpu()[same_mesh], y[same_mesh])
+    return box_err, errs, int(same_mesh.sum()), int(slots.sum())
+
+
 def phase_small_pix3d_card_vs_cpu():
     """The tiny Pix3D model (tests/test_pix3d.py TINY: 64x64 images, RPN 64 /
-    32, capacities 256/512/1024, float32) in eval on the card and on the CPU
-    with the same weights. Validity and labels identical; on valid slots boxes
-    within 1e-3 px, and scores, mask probabilities, voxels and stage vertices
-    within 1e-4 relative to scale (f32 on both, TF32 off: only summation order
-    differs). Vertices are compared where cubify gave both devices the same
-    mesh; a slot whose mesh differs must hold a voxel within 1e-5 of the
-    threshold on one device, a decision the rounding may flip."""
+    32, capacities 256/512/1024) in eval on the card and on the CPU with the
+    same weights, in float64 and in float32. Validity and labels identical;
+    on valid slots boxes within 1e-3 px, and scores, mask probabilities,
+    voxels and stage vertices within 1e-4 relative to scale in float64. In
+    float32, the dtype users run, the three refine stages with flax's
+    initial weights amplify the summation-order rounding to about 1e-4 of
+    scale, so each output is held within 1e-4 plus 4x float32's own spread:
+    the CPU's float32 output against its float64 one."""
+    import copy
+
     import torch
 
     from meshrcnn_tpu_torch.parallel.train_step import make_eval_step
 
     torch.manual_seed(4)
-    model = _tiny_pix3d_model()
-    images = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32))
-    cpu = make_eval_step(model)(images)
-    gpu = make_eval_step(model.to("cuda"))(images.to("cuda"))
-    cd, gd = cpu.detections, gpu.detections
-    if not (torch.equal(gd.valid.cpu(), cd.valid) and torch.equal(gd.labels.cpu(), cd.labels)):
-        _fail("Pix3D detections' validity or labels differ between the card and the CPU")
-    v = cd.valid
-    slots = cpu.mesh_valid
-
-    def rel(a, b):
-        return ((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
-
-    box_err = (gd.boxes.cpu()[v] - cd.boxes[v]).abs().max().item()
-    errs = {"scores": rel(gd.scores[v.cuda()], cd.scores[v]),
-            "mask_probs": rel(gpu.mask_probs[v.cuda()], cpu.mask_probs[v]),
-            "voxels": rel(gpu.voxels[slots.cuda()], cpu.voxels[slots])}
-    same_mesh = torch.tensor([torch.equal(gpu.mesh.faces[i].cpu(), cpu.mesh.faces[i])
-                              and torch.equal(gpu.mesh.verts_mask[i].cpu(), cpu.mesh.verts_mask[i])
-                              for i in range(slots.shape[0])]) & slots
-    for i in torch.nonzero(slots & ~same_mesh).flatten().tolist():
-        near = (cpu.voxels[i] - model.cubify_threshold).abs().min().item()
-        print(f"[small pix3d] slot {i}: cubify meshes differ; nearest voxel to the "
-              f"threshold {near:.2e}")
-        if not near < 1e-5:
-            _fail(f"slot {i}'s cubify mesh differs between the card and the CPU")
-    m = same_mesh.cuda()
-    for s, (a, b) in enumerate(zip(gpu.stage_verts, cpu.stage_verts)):
-        errs[f"stage {s} verts"] = rel(a[m], b[same_mesh]) if bool(same_mesh.any()) else 0.0
-    print(f"[small pix3d] {int(v.sum())} valid detections, {int(same_mesh.sum())} of "
-          f"{int(slots.sum())} meshes identical; boxes max |card - cpu| {box_err:.3e} px; "
-          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
-    if not (box_err <= 1e-3 and all(e < 1e-4 for e in errs.values())):
-        _fail("the tiny Pix3D eval forward differs between the card and the CPU")
+    base = _tiny_pix3d_model()
+    images = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3))
+    outs = {}
+    for dtype in (torch.float64, torch.float32):
+        model = copy.deepcopy(base).to(dtype)
+        cpu = make_eval_step(model)(images.to(dtype))
+        gpu = make_eval_step(model.to("cuda"))(images.to("cuda", dtype))
+        outs[dtype] = cpu, gpu
+        if not (torch.equal(gpu.detections.valid.cpu(), cpu.detections.valid)
+                and torch.equal(gpu.detections.labels.cpu(), cpu.detections.labels)):
+            _fail(f"Pix3D detections' validity or labels differ between the card and the CPU "
+                  f"in {dtype}")
+    thr = base.cubify_threshold
+    spread = _pix3d_eval_errors(outs[torch.float32][0], outs[torch.float64][0], thr,
+                                "cpu float32 vs float64")
+    for dtype in (torch.float64, torch.float32):
+        cpu, gpu = outs[dtype]
+        box_err, errs, same, n = _pix3d_eval_errors(gpu, cpu, thr, f"{dtype} card vs cpu")
+        bound = {k: 1e-4 + (4.0 * spread[1][k] if dtype == torch.float32 else 0.0)
+                 for k in errs}
+        print(f"[small pix3d] {dtype}: {int(cpu.detections.valid.sum())} valid detections, "
+              f"{same} of {n} meshes identical; boxes max |card - cpu| {box_err:.3e} px; "
+              + ", ".join(f"{k} {e:.3e} (bound {bound[k]:.3e})" for k, e in errs.items())
+              + ("; float32 spread on the CPU: " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in spread[1].items()) if dtype == torch.float32
+                 else ""))
+        if not (box_err <= 1e-3 and all(e < bound[k] for k, e in errs.items())):
+            _fail(f"the tiny Pix3D eval forward differs between the card and the CPU in {dtype}")
 
 
 def _distance(a: dict, b: dict, keys) -> float:
@@ -2731,9 +2815,10 @@ def phase_api(kernels, root: str):
 
 
 def _api_card_vs_cpu():
-    """A tiny ShapeNetAPI and Pix3DAPI, float32, seed 1, on the card and on
-    the CPU: the same eval dict within 1e-4 of scale (topology identical where
-    cubify saw the same occupancy)."""
+    """A tiny ShapeNetAPI (float32, seed 1) and Pix3DAPI (seed 4, float64 and
+    float32) on the card and on the CPU: the same eval dict within 1e-4 of
+    scale, the float32 Pix3D one within that plus 4x float32's spread from
+    float64 (topology identical where cubify saw the same occupancy)."""
     import torch
 
     from meshrcnn_tpu_torch.models.api import Pix3DAPI, ShapeNetAPI
@@ -2764,32 +2849,58 @@ def _api_card_vs_cpu():
     if not same or not all(e < 1e-4 for e in errs.values()):
         _fail("the tiny ShapeNetAPI's eval dict differs between the card and the CPU")
 
-    images = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+    # the Pix3D API in float64 and in float32, held as
+    # phase_small_pix3d_card_vs_cpu holds the model: with flax's weights its
+    # refine stages amplify float32's rounding, so float32 gets 4x float32's
+    # own spread (the CPU's float32 dict against its float64 one) on top
+    images = np.random.RandomState(0).rand(2, 64, 64, 3)
     kw = dict(voxel_out_channels=8, vert_capacity=256, face_capacity=512, edge_capacity=1024,
               rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32, roi_batch_size=32, mask_rois=8,
               backbone_dtype="float32", seed=4)
-    cpu, gpu = [Pix3DAPI(device=d, **kw).eval()(images) for d in ("cpu", "cuda")]
-    same_det = all(np.array_equal(g["valid"], c["valid"]) and np.array_equal(g["labels"], c["labels"])
-                   for g, c in zip(gpu["backbone"], cpu["backbone"]))
-    if not same_det:
-        _fail("the tiny Pix3DAPI's detections differ in validity or labels")
-    errs = {"boxes px": max(float(np.abs(g["boxes"][g["valid"]] - c["boxes"][c["valid"]]).max(initial=0))
-                            for g, c in zip(gpu["backbone"], cpu["backbone"])),
-            "scores": max(rel(g["scores"][g["valid"]], c["scores"][c["valid"]])
-                          for g, c in zip(gpu["backbone"], cpu["backbone"])),
-            "masks": max(rel(g["masks"][g["valid"]], c["masks"][c["valid"]])
-                         for g, c in zip(gpu["backbone"], cpu["backbone"])),
-            "voxels": rel(gpu["voxels"].cpu(), cpu["voxels"])}
-    same = _ragged_equal(gpu, dict(cpu, vertex_positions=gpu["vertex_positions"],
-                                   voxels=gpu["voxels"])) == []
-    if same:
-        errs["vertex_positions"] = max(rel(a, b) for a, b in zip(gpu["vertex_positions"],
-                                                                 cpu["vertex_positions"]))
-    print(f"[api] tiny Pix3DAPI card vs cpu: {sum(cpu['mesh_index'])} meshes, topology "
-          f"identical {same}; " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
-    ok = errs.pop("boxes px") <= 1e-3 and all(e < 1e-4 for e in errs.values())
-    if not same or not ok:
-        _fail("the tiny Pix3DAPI's eval dict differs between the card and the CPU")
+
+    def api_of(device, dtype):
+        api = Pix3DAPI(device=device, **kw)
+        api.model.to(dtype)
+        api._images = lambda x: torch.from_numpy(np.asarray(x)).to(device, dtype)
+        return api.eval()
+
+    def errors(g, c):
+        """(errors of dict ``g`` against ``c`` on the detections valid in both,
+        topology identical)."""
+        valid = [gb["valid"] & cb["valid"] for gb, cb in zip(g["backbone"], c["backbone"])]
+        pairs = list(zip(g["backbone"], c["backbone"], valid))
+        errs = {"boxes px": max(float(np.abs(np.asarray(gb["boxes"][v], np.float64)
+                                             - cb["boxes"][v]).max(initial=0))
+                                for gb, cb, v in pairs),
+                "scores": max(rel(gb["scores"][v], cb["scores"][v]) for gb, cb, v in pairs),
+                "masks": max(rel(gb["masks"][v], cb["masks"][v]) for gb, cb, v in pairs),
+                "voxels": rel(g["voxels"].cpu(), c["voxels"])}
+        same = _ragged_equal(g, dict(c, vertex_positions=g["vertex_positions"],
+                                     voxels=g["voxels"])) == []
+        errs["vertex_positions"] = max(rel(a, b) for a, b in zip(
+            g["vertex_positions"], c["vertex_positions"])) if same else 0.0
+        return errs, same
+
+    outs = {dt: [api_of(d, dt)(images) for d in ("cpu", "cuda")]
+            for dt in (torch.float64, torch.float32)}
+    spread, _ = errors(outs[torch.float32][0], outs[torch.float64][0])
+    for dt in (torch.float64, torch.float32):
+        cpu, gpu = outs[dt]
+        if not all(np.array_equal(g["valid"], c["valid"]) and np.array_equal(g["labels"], c["labels"])
+                   for g, c in zip(gpu["backbone"], cpu["backbone"])):
+            _fail(f"the tiny Pix3DAPI's detections differ in validity or labels in {dt}")
+        errs, same = errors(gpu, cpu)
+        bound = {k: (1e-3 if k == "boxes px" else 1e-4)
+                 + (4.0 * spread[k] if dt == torch.float32 and k != "boxes px" else 0.0)
+                 for k in errs}
+        print(f"[api] tiny Pix3DAPI card vs cpu, {dt}: {sum(cpu['mesh_index'])} meshes, "
+              f"topology identical {same}; "
+              + ", ".join(f"{k} {e:.3e} (bound {bound[k]:.3e})" for k, e in errs.items())
+              + ("; float32 spread on the CPU: " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in spread.items()) if dt == torch.float32 else ""))
+        if not same or not all(e <= bound[k] if k == "boxes px" else e < bound[k]
+                               for k, e in errs.items()):
+            _fail(f"the tiny Pix3DAPI's eval dict differs between the card and the CPU in {dt}")
 
 
 def _demo_flags(root: str, model_name: str, image_path: str, save: str) -> list:
@@ -3071,6 +3182,176 @@ def phase_tools(kernels, root: str):
         _fail("time_this did not log the card's work")
 
 
+RECIPE_MODELS, RECIPE_VIEWS = 12, 4
+
+
+@contextlib.contextmanager
+def _counted_clis():
+    """Wrap the CLIs' ``main``s that ``parity_recipes`` calls: each call runs
+    with the launch counts set to 0 just before it and read just after.
+    Yields the list of (kind, argv, its result, counts, wall s) it fills."""
+    import torch
+
+    from meshrcnn_tpu_torch import eval_model, train
+
+    calls = []
+    saved = train.main, eval_model.main
+
+    def counted(kind, fn):
+        def run(argv=None, *args, **kwargs):
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = fn(argv, *args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append((kind, argv, out, _counts(), time.perf_counter() - t0))
+            return out
+        return run
+    train.main, eval_model.main = counted("train", saved[0]), counted("eval", saved[1])
+    try:
+        yield calls
+    finally:
+        train.main, eval_model.main = saved
+
+
+def _recipe_checks(kernels, recipe: str, calls, want: list) -> None:
+    """Each phase of a recipe run: finite meters or metrics, the steps or
+    batches it should have taken, and its launches exactly (K1, K3) a step or
+    an eval batch; prints ms/step or ms/batch. ``want`` holds (steps or eval
+    batches, K1, K3 per step or batch) of each phase in order."""
+    if len(calls) != len(want):
+        _fail(f"{recipe}: {len(calls)} CLI calls, want {len(want)}")
+    for (kind, argv, out, counts, wall), (n, k1, k3) in zip(calls, want):
+        if kind == "train":
+            meters = out["meters"]
+            history = {k: m.history for k, m in meters.items()}
+            finite = all(np.isfinite(h).all() for h in history.values())
+            steps = out["state"].step     # a checkpoint of another structure loads step 0
+            ms = meters["batch_time"].history[-1] * 1e3
+            first = meters["warmup_time"].history[-1] * 1e3
+            line = (f"{n} steps in {wall:.3f} s, first {first:.2f} ms, steady {ms:.2f} "
+                    f"ms/step over {n - 1}, grads_finite "
+                    f"{meters['grads_finite'].history}, losses "
+                    f"{json.dumps({k: h[-1] for k, h in history.items() if 'loss' in k})}")
+            ok = finite and steps == n and min(meters["grads_finite"].history) == 1.0
+        else:
+            scalars = {k: v for k, v in out.items() if k not in ("confusion", "path")}
+            finite = all(np.isfinite(v) for v in scalars.values())
+            ms = out["batch_time"] * 1e3
+            line = (f"{n} batches in {wall:.3f} s, first {out['warmup_time'] * 1e3:.2f} ms, "
+                    f"steady {ms:.2f} ms/batch over {n - 1}, metrics {json.dumps(scalars)}")
+            ok = finite and int(out["confusion"].sum()) == n * int(argv[argv.index("--batchSize")
+                                                                       + 1])
+        expect = dict(WANT_NONE, chamfer_nn_bidir=k1 * n, knn_topk_batched=k3 * n)
+        print(f"[recipes] {recipe} {kind}: {line}; launches {counts}")
+        if not ok or counts != expect:
+            _fail(f"{recipe} {kind}: finite and complete {ok}, launches {counts}, want {expect}")
+        kernels["chamfer_nn_bidir"]["launches"] += counts["chamfer_nn_bidir"]
+        kernels["knn_topk_batched"]["launches"] += counts["knn_topk_batched"]
+
+
+def phase_recipes(kernels, root: str):
+    """The parity recipes and tools of ``tools/`` through the port's runners,
+    each at a cut: ``parity_recipes shapenet`` on a generated mini-ShapeNet of
+    12 models x 4 views (``make_mini_shapenet``, meshes rendered by
+    ``download_dataset``), 12 training samples, phase A 1 epoch
+    ``--voxel_only`` (K1 0), phase B 1 epoch from A's checkpoint (K1 x 3 a
+    step; normal weight 0, so no K3), phase C the held-out eval with
+    ``--knn_normals`` (K1 x 4, K3 x 6 a batch); ``parity_recipes pix3d`` on
+    16 samples for 1 epoch (K1 x 3, K3 x 6 a step; the eval K1 x 5, K3 x 6 a
+    batch); ``pix3d_detection_scale`` on 20 of 24 samples for 1 epoch (16 of
+    19 leaves its 15% test side 3 images, no batch of 4) and
+    ``pix3d_finetune --mode frozen`` for 1 epoch from its checkpoint (K1 x 3
+    a step, x 5 an eval batch, no K3), every ``backbone.*`` parameter of the
+    two checkpoints equal in every bit and the mesh branch moved;
+    ``overfit_detector`` for 20 steps, evaluating every 10 (K1 x 3 a step,
+    none in its detection metrics); ``quantify_normals`` and
+    ``quantify_knn`` at n=2048 (K2 x 3 and K3 x 2 a mesh; K4 x 1 and K3 x 2
+    more a trial), every number finite."""
+    import os
+
+    import torch
+
+    from meshrcnn_tpu_torch import (download_dataset, make_mini_shapenet, overfit_detector,
+                                    parity_recipes, quantify_knn, quantify_normals)
+
+    ds = os.path.join(root, "recipes_ds")
+    t0 = time.perf_counter()
+    make_mini_shapenet.main(["--root", ds, "--num_models", str(RECIPE_MODELS), "--views",
+                             str(RECIPE_VIEWS)])
+    download_dataset.main(["--render_meshes", "--build_manifest", "--root", ds])
+    print(f"[recipes] mini-ShapeNet of {RECIPE_MODELS} models x {RECIPE_VIEWS} views in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_records = RECIPE_MODELS * RECIPE_VIEWS
+    eval_batches = (n_records - int(np.floor(n_records * (1.0 - 0.0666)))) // 3
+    cuts = {
+        "shapenet": (["--data_root", ds, "--n", "12", "--epochs_a", "1", "--epochs_b", "1"],
+                     [(4, 0, 0), (4, 3, 0), (eval_batches, 4, 6)]),
+        "pix3d": (["--n", "16", "--epochs", "1"], [(4, 3, 6), (2, 5, 6)]),
+        "pix3d_detection_scale": (["--n", "20", "--epochs", "1"], [(5, 3, 0), (1, 5, 0)]),
+    }
+    finals = {}
+    for recipe, (flags, want) in cuts.items():
+        with _counted_clis() as calls:
+            out = parity_recipes.main([recipe, "--out", os.path.join(root, recipe)] + flags)
+        _recipe_checks(kernels, recipe, calls, want)
+        finals[recipe] = out["phases"]["train" if "train" in out["phases"] else "full"]["final"]
+        print(f"[recipes] {recipe} beside the JAX run: "
+              f"{json.dumps(out['comparison']['heldout'])}")
+
+    with _counted_clis() as calls:
+        parity_recipes.main(["pix3d_finetune", "--ckpt", finals["pix3d_detection_scale"],
+                             "--out", os.path.join(root, "finetune"), "--n", "20",
+                             "--epochs", "1", "--mode", "frozen"])
+    _recipe_checks(kernels, "pix3d_finetune", calls, [(5, 3, 0), (1, 5, 0)])
+    before = torch.load(finals["pix3d_detection_scale"], weights_only=True)["model"]
+    after = torch.load(calls[0][2]["final"], weights_only=True)["model"]
+    params = {n for n, _ in calls[0][2]["state"].model.named_parameters()}
+    frozen = [n for n in params if n.startswith("backbone.")]
+    moved = [n for n in frozen if not torch.equal(before[n], after[n])]
+    mesh_moved = [n for n in params - set(frozen) if not torch.equal(before[n], after[n])]
+    buffers = [n for n in after if n.startswith("backbone.") and n not in params
+               and not torch.equal(before[n], after[n])]
+    print(f"[recipes] frozen finetune: {len(frozen)} backbone.* parameters, {len(moved)} "
+          f"changed; {len(mesh_moved)} of {len(params) - len(frozen)} mesh-branch parameters "
+          f"moved; {len(buffers)} backbone.* BatchNorm buffers moved (train-mode statistics, "
+          f"as in JAX)")
+    if moved or not frozen or not mesh_moved:
+        _fail(f"frozen finetune: backbone.* parameters changed {moved[:5]}, mesh branch "
+              f"moved {len(mesh_moved)}")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = overfit_detector.main(["--steps", "20", "--eval_every", "10"])
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"[recipes] overfit_detector: 20 steps in {time.perf_counter() - t0:.3f} s; "
+          f"rows {json.dumps(rows)}; launches {counts}")
+    finite = all(np.isfinite([r["loss"]] + list(r["train"].values()) + list(r["test"].values()))
+                 .all() for r in rows)
+    if [r["step"] for r in rows] != [1, 10, 20] or not finite \
+            or counts != dict(WANT_NONE, chamfer_nn_bidir=60):
+        _fail(f"overfit_detector: rows {rows}, launches {counts}")
+    kernels["chamfer_nn_bidir"]["launches"] += counts["chamfer_nn_bidir"]
+
+    for tool, flags, want in (
+            (quantify_normals, [], dict(WANT_NONE, chamfer_nn_bidir=6, chamfer_sums_fused=6,
+                                        knn_topk_batched=4)),
+            (quantify_knn, [], dict(WANT_NONE, knn_topk_batched=18, knn_topk=6))):
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = tool.main(["--n", "2048"] + flags)
+        torch.cuda.synchronize()
+        counts = _counts()
+        numbers = [v for r in res.values() for v in r.values() if isinstance(v, float)]
+        print(f"[recipes] {tool.__name__.split('.')[-1]} at n=2048 in "
+              f"{time.perf_counter() - t0:.3f} s; launches {counts}")
+        if not np.isfinite(numbers).all() or counts != want:
+            _fail(f"{tool.__name__}: finite {np.isfinite(numbers).all()}, launches {counts}, "
+                  f"want {want}")
+        for name, n in counts.items():
+            kernels[name]["launches"] += n
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3106,6 +3387,7 @@ def main() -> None:
         timed(phase_bench, kernels, card)
         timed(phase_train_backbone, kernels, root)
         timed(phase_tools, kernels, root)
+        timed(phase_recipes, kernels, root)
     timed(phase_small_card_vs_cpu)
     timed(phase_small_pix3d_card_vs_cpu)
     timed(phase_small_train_card_vs_cpu)

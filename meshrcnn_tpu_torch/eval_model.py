@@ -8,7 +8,9 @@ seed-42 split of ``--dataRoot``: voxel, chamfer, normal and edge losses, the
 confusion-based f0_1 / f0_3 / f0_5 and point-cloud F1@0.1 / 0.3; for Pix3D
 also AP_box, AP_mask, AP_mesh and the score-ranked AP50s (ranked AP on, as
 the JAX ``validate_pix3d`` has it). Pickles the metrics, ``confusion``
-included, to ``<output_path>/metrics_<model>.st``. Runs on the card unless
+included, to ``<output_path>/metrics_<model>.st``. ``--knn_normals`` scores
+normals estimated by kNN + PCA (K3), as the JAX CLI under
+``MESHRCNN_FACE_NORMALS=0``; face normals by default. Runs on the card unless
 ``--device cpu``; without a card it raises.
 
 Data-parallel eval, as the JAX CLI has it: ``--num_devices N`` (default 1)
@@ -67,7 +69,7 @@ def _evaluate(options, device: torch.device, uniform: Optional[Uniform]) -> Opti
     is_pix3d = options.model == "Pix3D"
     num_classes = 10 if is_pix3d else 13
     config = TrainConfig(point_cloud_size=options.point_cloud_size,
-                         batch_size=options.batchSize)
+                         batch_size=options.batchSize, face_normals=not options.knn_normals)
 
     dataset = cli.dataset_of(options, is_pix3d, options.synthetic_size)
     loader = dataLoader(dataset, options.batchSize, cli.num_voxels_of(is_pix3d),

@@ -9,7 +9,9 @@ the trained model on held-out samples, once a seed: ``SyntheticDataset(n,
 ``--batch`` with capacities 2048/4096/8192; the first n - n // 6 samples train
 and the rest are held out. The model is ``ShapeNetModel(13 classes, residual,
 cubify threshold 0.2, 3 stages)`` with the bfloat16 backbone of the JAX model's
-default, its weights from torch's generator at seed 0 whatever the seed; the
+default, its initial weights flax's (``models/init.py``: ``lecun_normal``
+kernels, zero biases, GraphConv's uniform), drawn from torch's global
+generator at seed 0 whatever the seed; the
 training is Adam at lr 1e-4 without weight decay, the backbone trained, clouds
 of 2048 points, loss weights voxel 1, chamfer 1, normal 0, edge 0.5. The seed
 seeds the train step's draws, as the JAX tool's ``--seed`` keys its steps;
@@ -69,7 +71,8 @@ def protocol_batches(n: int, batch: int):
 
 
 def _setup(batch: int, device: torch.device):
-    """(model, config) of the protocol, the model drawn from torch's generator at seed 0."""
+    """(model, config) of the protocol, the model's flax initialisation drawn
+    from torch's global generator at seed 0."""
     torch.manual_seed(0)
     model = ShapeNetModel(num_classes=13, residual=True, cubify_threshold=0.2,
                           vert_capacity=CAPS.verts, face_capacity=CAPS.faces,

@@ -6,7 +6,9 @@ parameters stay float32. These subclasses do the same with explicit casts, so
 each layer follows flax's rule and not ``torch.autocast``'s operator lists.
 ``compute_dtype=None`` (float32, the parity mode) casts nothing: the layer is
 its torch base class and computes in its parameters' dtype (float64 too).
-Their parameters and state-dict names are those of the torch base classes.
+Their parameters and state-dict names are those of the torch base classes;
+their initial weights are flax's (``models/init.py``): ``lecun_normal``
+kernels and zero biases.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from meshrcnn_tpu_torch.models.init import reset_layer_
 
 
 def compute_dtype(name: str) -> Optional[torch.dtype]:
@@ -38,6 +42,9 @@ class Conv2d(nn.Conv2d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
+    def reset_parameters(self) -> None:
+        reset_layer_(self)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
@@ -50,6 +57,9 @@ class Linear(nn.Linear):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
+    def reset_parameters(self) -> None:
+        reset_layer_(self)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
@@ -61,6 +71,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+
+    def reset_parameters(self) -> None:
+        reset_layer_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

@@ -3,7 +3,9 @@
 
 Features are [B, Vmax, C] blocks; neighbour sums go through
 ``ops/graph_conv.aggregate_neighbours``. Module names follow the flax scopes
-so ``utils/jax_params.py`` maps parameters by path.
+so ``utils/jax_params.py`` maps parameters by path. Initial weights are flax's
+(``models/init.py``): GraphConv's ``w0`` / ``w1`` U(+-1/sqrt(fan_in)), every
+other kernel ``lecun_normal`` with zero biases.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from meshrcnn_tpu_torch.models.cast import Conv2d, ConvTranspose2d, Linear
+from meshrcnn_tpu_torch.models.init import FanInLinear
 from meshrcnn_tpu_torch.ops.graph_conv import EdgeTopology, aggregate_neighbours
 from meshrcnn_tpu_torch.ops.vert_align import vert_align
 from meshrcnn_tpu_torch.utils.shapes import conv_output, convT_output
@@ -25,8 +29,8 @@ class GraphConv(nn.Module):
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
-        self.w0 = nn.Linear(in_features, out_features, bias=False)
-        self.w1 = nn.Linear(in_features, out_features, bias=False)
+        self.w0 = FanInLinear(in_features, out_features)
+        self.w1 = FanInLinear(in_features, out_features)
 
     def forward(self, feats: torch.Tensor, topo: EdgeTopology) -> torch.Tensor:
         return torch.relu(self.w0(feats) + aggregate_neighbours(self.w1(feats), topo))
@@ -37,7 +41,7 @@ class ResGraphConv(nn.Module):
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
-        self.projection = (nn.Linear(in_features, out_features, bias=False)
+        self.projection = (Linear(in_features, out_features, bias=False)
                            if in_features != out_features else None)
         self.conv0 = GraphConv(in_features, out_features)
         self.conv1 = GraphConv(out_features, out_features)
@@ -47,7 +51,7 @@ class ResGraphConv(nn.Module):
         return skip + self.conv1(self.conv0(feats, topo), topo)
 
 
-class _LevelProjector(nn.Linear):
+class _LevelProjector(Linear):
     """One [F, sum(C_l)] no-bias weight applied level-wise to a feature-map list.
 
     Because bilinear sampling is linear, projecting each map by its slice of
@@ -119,7 +123,7 @@ class VertixRefineShapeNet(nn.Module):
         self.graphConv0 = GraphConv(in_f, num_features)
         self.graphConv1 = GraphConv(num_features + ndims, num_features)
         self.graphConv2 = GraphConv(num_features + ndims, num_features)
-        self.linear1 = nn.Linear(num_features, ndims, bias=False)
+        self.linear1 = Linear(num_features, ndims, bias=False)
 
     def forward(self, feature_maps, verts, topo, image_size,
                 vert_feats: Optional[torch.Tensor] = None):
@@ -148,7 +152,7 @@ class VertixRefinePix3D(nn.Module):
         self.graphConv0 = GraphConv(in_f, num_features)
         self.graphConv1 = GraphConv(num_features + ndims, num_features)
         self.graphConv2 = GraphConv(num_features + ndims, num_features)
-        self.linear = nn.Linear(num_features + ndims, ndims, bias=False)
+        self.linear = Linear(num_features + ndims, ndims, bias=False)
 
     def forward(self, roi_features, verts, topo, image_size,
                 vert_feats: Optional[torch.Tensor] = None):
@@ -174,10 +178,10 @@ class VoxelBranch(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, hidden_channels: int = 256):
         super().__init__()
-        self.conv0 = nn.Conv2d(in_channels, hidden_channels, 3, padding=1)
-        self.conv1 = nn.Conv2d(hidden_channels, hidden_channels, 3, padding=1)
-        self.deconv = nn.ConvTranspose2d(hidden_channels, hidden_channels, 2, stride=2)
-        self.conv2 = nn.Conv2d(hidden_channels, out_channels, 1)
+        self.conv0 = Conv2d(in_channels, hidden_channels, 3, padding=1)
+        self.conv1 = Conv2d(hidden_channels, hidden_channels, 3, padding=1)
+        self.deconv = ConvTranspose2d(hidden_channels, hidden_channels, 2, stride=2)
+        self.conv2 = Conv2d(hidden_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]

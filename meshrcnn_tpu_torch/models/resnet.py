@@ -21,7 +21,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from meshrcnn_tpu_torch.models.cast import Conv2d
+from meshrcnn_tpu_torch.models.cast import Conv2d, Linear
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -114,7 +114,7 @@ class ResNet50(ResNetBody):
     def __init__(self, num_classes: int = 13, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  dtype: Optional[torch.dtype] = None):
         super().__init__(stage_sizes, dtype)
-        self.fc = nn.Linear(2048, num_classes)
+        self.fc = Linear(2048, num_classes)
 
     def forward(self, images: torch.Tensor):
         maps = self.stages(images.permute(0, 3, 1, 2))

@@ -67,8 +67,8 @@ class TwoMLPHead(nn.Module):
 class FastRCNNPredictor(nn.Module):
     def __init__(self, in_features: int, num_classes: int):
         super().__init__()
-        self.cls_score = nn.Linear(in_features, num_classes)
-        self.bbox_pred = nn.Linear(in_features, num_classes * 4)
+        self.cls_score = Linear(in_features, num_classes)
+        self.bbox_pred = Linear(in_features, num_classes * 4)
 
     def forward(self, x: torch.Tensor):
         return self.cls_score(x), self.bbox_pred(x)

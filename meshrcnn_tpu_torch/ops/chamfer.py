@@ -68,26 +68,28 @@ def _sqdist(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def knn(p: torch.Tensor, q: torch.Tensor, k: int, tile: int = 2048):
+def knn(p: torch.Tensor, q: torch.Tensor, k: int, tile: int = 2048, exact: bool = False):
     """k nearest neighbours in q [M,3] of every point of p [N,3] (squared
     distances, ascending) -> (dists [N,k], idx [N,k] int32).
 
-    Exact for M <= 1024; else K4, the k best of the subtile-min candidates,
-    which loses a true neighbour only where two share a run of ``s`` points.
+    Exact for M <= 1024 or with ``exact`` (the full distance matrix, in plain
+    PyTorch); else K4, the k best of the subtile-min candidates, which loses
+    a true neighbour only where two share a run of ``s`` points.
     """
     M = q.shape[0]
-    if M <= EXACT_MAX_POINTS:
+    if exact or M <= EXACT_MAX_POINTS:
         top, pos = smallest_k_stable(_sqdist(p, q), k)
         return top, pos.to(torch.int32)
     return knn_topk(p.contiguous(), q.contiguous(), knn_subtile(M, k, tile), k)
 
 
 @torch.no_grad()
-def batched_knn(p: torch.Tensor, q: torch.Tensor, k: int, tile: int = 2048):
+def batched_knn(p: torch.Tensor, q: torch.Tensor, k: int, tile: int = 2048,
+                exact: bool = False):
     """Per-sample ``knn`` over a batch, p [B,N,3], q [B,M,3] -> (dists [B,N,k],
     idx [B,N,k]); the candidate path is one K3 launch for the whole batch."""
     M = q.shape[1]
-    if M <= EXACT_MAX_POINTS:
+    if exact or M <= EXACT_MAX_POINTS:
         top, pos = smallest_k_stable(_sqdist(p, q), k)
         return top, pos.to(torch.int32)
     return knn_topk_batched(p.contiguous(), q.contiguous(), knn_subtile(M, k, tile), k)
@@ -151,12 +153,14 @@ def smallest_eigenvector(S: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(norm, min=1e-12)
 
 
-def batched_compute_normals(pts: torch.Tensor, k: int = 10, tile: int = 2048) -> torch.Tensor:
+def batched_compute_normals(pts: torch.Tensor, k: int = 10, tile: int = 2048,
+                            exact: bool = False) -> torch.Tensor:
     """PCA normals of clouds [B,N,3] from each point's k nearest neighbours
-    within its own cloud: neighbourhood mean, scatter matrix, eigenvector of
-    the smallest eigenvalue. Differentiable in ``pts`` through the gather."""
+    within its own cloud (``batched_knn``; all M of them with ``exact``):
+    neighbourhood mean, scatter matrix, eigenvector of the smallest
+    eigenvalue. Differentiable in ``pts`` through the gather."""
     B, N, _ = pts.shape
-    idx = batched_knn(pts, pts, k, tile)[1]
+    idx = batched_knn(pts, pts, k, tile, exact)[1]
     neigh = batched_gather_rows(pts, idx.reshape(B, N * k)).reshape(B, N, k, 3)
     Y = neigh - neigh.mean(2, keepdim=True)
     S = torch.einsum("bnkd,bnke->bnde", Y, Y)
@@ -170,15 +174,15 @@ def compute_normals(pts: torch.Tensor, k: int = 10, tile: int = 2048) -> torch.T
 
 def batched_normal_distance(p: torch.Tensor, q: torch.Tensor, idx_p: torch.Tensor,
                             idx_q: torch.Tensor, k: int = 10, tile: int = 2048,
-                            normals_p=None, normals_q=None):
+                            normals_p=None, normals_q=None, exact: bool = False):
     """Two-sided per-sample summed |cos| alignment of the normals of clouds
     p [B,N,3], q [B,M,3] at the nearest-neighbour indices -> ([B] sum_p, [B] sum_q).
 
     Given unit normals (the sampler's face normals) are used as they are; a
-    cloud without them gets ``batched_compute_normals``.
+    cloud without them gets ``batched_compute_normals`` (with ``exact``).
     """
-    n_p = normals_p if normals_p is not None else batched_compute_normals(p, k, tile)
-    n_q = normals_q if normals_q is not None else batched_compute_normals(q, k, tile)
+    n_p = normals_p if normals_p is not None else batched_compute_normals(p, k, tile, exact)
+    n_q = normals_q if normals_q is not None else batched_compute_normals(q, k, tile, exact)
     nn_p = batched_gather_rows(n_q, idx_p)
     nn_q = batched_gather_rows(n_p, idx_q)
     return (n_p * nn_p).sum(-1).abs().sum(1), (n_q * nn_q).sum(-1).abs().sum(1)

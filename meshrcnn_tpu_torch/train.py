@@ -12,6 +12,9 @@ unless ``--device cpu``; without a card it raises. ``--model_path`` resumes a
 checkpoint (``load_state``, else the matching entries through
 ``load_state_partial``); ``--backbone_path`` loads a torchvision ResNet-50 or
 ``maskrcnn_resnet50_fpn`` state dict, or a checkpoint of this CLI.
+``--knn_normals`` trains the normal loss on normals estimated by kNN + PCA
+(K3, 6 launches a step), as the JAX CLI under ``MESHRCNN_FACE_NORMALS=0``;
+the default is the sampled triangles' face normals.
 
 Data parallelism, as the JAX CLI has it: ``--num_devices N`` (default every
 visible card; one on the CPU) spawns N ranks, one process and one card each,
@@ -35,13 +38,14 @@ from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import torch
 
 from meshrcnn_tpu_torch.core.config import LossWeights, TrainConfig
 from meshrcnn_tpu_torch.data.datasets import dataLoader
 from meshrcnn_tpu_torch.harness import train_epoch
-from meshrcnn_tpu_torch.ops.sampling import uniform_from
+from meshrcnn_tpu_torch.ops.sampling import Uniform, uniform_from
 from meshrcnn_tpu_torch.parallel import distributed
 from meshrcnn_tpu_torch.parallel.train_step import (create_train_state, make_dp_train_step,
                                                     make_multi_step, make_train_step)
@@ -107,7 +111,8 @@ def train_config(options) -> TrainConfig:
                        point_cloud_size=options.point_cloud_size,
                        loss_weights=weights, grad_clip=options.grad_clip,
                        pix3d_schedule=options.model == "Pix3D" and not options.no_pix3d_schedule,
-                       report_unweighted_losses=options.report_unweighted_losses)
+                       report_unweighted_losses=options.report_unweighted_losses,
+                       face_normals=not options.knn_normals)
 
 
 def model_settings(options, device) -> dict:
@@ -116,17 +121,19 @@ def model_settings(options, device) -> dict:
                               roi_batch_size=options.roi_batch_size)
 
 
-def main(argv=None) -> dict:
-    """Train as the flags in ``argv`` say. Returns what it wrote: ``dir``, the
+def main(argv=None, uniform: Optional[Uniform] = None) -> dict:
+    """Train as the flags in ``argv`` say. ``uniform`` is the source of the
+    train steps' draws; by default the rank's generator (seeded from
+    ``TrainConfig.seed`` and the rank). Returns what it wrote: ``dir``, the
     ``checkpoints`` and ``stats`` of each epoch and the ``final`` checkpoint,
     with the ``meters`` and, unless the ranks were spawned, the final train
     ``state``."""
     options = parser.parse_args(argv)
     visible = torch.cuda.device_count() if options.device.startswith("cuda") else 1
-    return cli.run_ranks(_train, options, max(visible, 1))
+    return cli.run_ranks(_train, options, max(visible, 1), uniform)
 
 
-def _train(options, device: torch.device) -> dict:
+def _train(options, device: torch.device, uniform: Optional[Uniform] = None) -> dict:
     """The training run of one rank (the only one without data parallelism)."""
     dp = distributed.active()
     rank, world = distributed.rank(), distributed.world()
@@ -167,7 +174,7 @@ def _train(options, device: torch.device) -> dict:
         safe_print(f"loaded backbone {options.backbone_path}: {n_loaded} tensors, "
                    f"{n_fresh} of heads of another size left fresh")
 
-    uniform, n = uniform_from(generator), options.steps_per_dispatch
+    uniform, n = uniform or uniform_from(generator), options.steps_per_dispatch
     multi_step_fn = group_shard_fn = None
     if dp:
         step_fn = make_dp_train_step(config, uniform)

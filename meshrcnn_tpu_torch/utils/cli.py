@@ -156,6 +156,11 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                              "mesh branch; must match between train and eval")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on: 'cuda' (default) or 'cpu'")
+    parser.add_argument("--knn_normals", default=False, action="store_true",
+                        help="estimate the normals of the normal loss and metric by kNN + "
+                             "PCA from each cloud (the reference's estimator; the JAX "
+                             "CLIs' MESHRCNN_FACE_NORMALS=0) instead of the sampled "
+                             "triangles' own normals")
 
 
 def capacities_of(options) -> CapacityConfig:
@@ -205,8 +210,8 @@ def model_settings(options, device: torch.device, **pix3d_sizes) -> dict:
 
 
 def build_model(settings: dict, device: torch.device) -> ShapeNetModel | Pix3DModel:
-    """The model of ``settings`` on ``device``, randomly initialised from
-    torch's global generator."""
+    """The model of ``settings`` on ``device``, its flax initialisation
+    (``models/init.py``) drawn from torch's global generator."""
     kwargs = {k: v for k, v in settings.items() if k != "model"}
     cls = Pix3DModel if settings["model"] == "Pix3D" else ShapeNetModel
     return cls(**kwargs).to(device)
