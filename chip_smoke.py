@@ -1506,9 +1506,192 @@ def phase_real_data(kernels, card: str, root: str):
     print(f"[real] {card}: ms/step of 1-epoch runs ({REAL_MODELS // 3} steps), in the order run: "
           + "; ".join(f"{tag} {ms[0]:.2f}, {ms[1]:.2f}" for tag, ms in step_ms.items()))
     print(f"[real] native decoder calls {fastio.calls}; PIL imported: {'PIL' in sys.modules}")
-    if not all(fastio.calls.values()) or "PIL" in sys.modules:
+    if not all(fastio.calls[k] for k in ("parse_obj", "decode_rle", "png_unfilter",
+                                         "resample_u8")) or "PIL" in sys.modules:
         _fail(f"real data: native decoder calls {fastio.calls}, PIL imported "
               f"{'PIL' in sys.modules}")
+    kernels["chamfer_nn_bidir"]["launches"] += total
+
+
+JPEG_SAMPLES, JPEG_BATCH = 32, 4
+PIX3D_FULL_WIDTH = ["--model", "Pix3D", "-b", str(JPEG_BATCH), "--img_size", "224",
+                    "--vert_capacity", "4096", "--face_capacity", "8192", "--edge_capacity",
+                    "16384", "--point_cloud_size", "10000", "--num_devices", "1",
+                    "--print_freq", "1000"]
+
+
+def _pix3d_tree(root: str, images: list, ext: str, seed: int = 0) -> None:
+    """A Pix3D tree of the given uint8 RGB images, written as ``ext`` ("jpg":
+    the bytes given; "png": ``image_io.write_png`` of the pixels), with a
+    PNG mask of a box, a mesh and a 32^3 voxel grid a sample, made from
+    ``seed``."""
+    import os
+
+    from meshrcnn_tpu_torch.data import image_io, serialization
+    from meshrcnn_tpu_torch.data.datasets import PIX3D_CLASSES
+
+    rng = np.random.RandomState(seed)
+    for d in ("img", "mask", "model"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    classes = sorted(PIX3D_CLASSES)
+    manifest = []
+    for i, (raw, pixels) in enumerate(images):
+        h, w = pixels.shape[:2]
+        img = f"img/{i:03d}.{ext}"
+        if ext == "jpg":
+            with open(os.path.join(root, img), "wb") as f:
+                f.write(raw)
+        else:
+            image_io.write_png(os.path.join(root, img), pixels)
+        x0, y0 = rng.randint(0, max(w // 3, 1)), rng.randint(0, max(h // 3, 1))
+        x1, y1 = x0 + max(w // 2, 1), y0 + max(h // 2, 1)
+        mask = np.zeros((h, w), np.uint8)
+        mask[y0:y1, x0:x1] = 255
+        image_io.write_png(os.path.join(root, "mask", f"{i:03d}.png"), mask)
+        np.save(os.path.join(root, "model", f"{i:03d}.npy"),
+                (rng.rand(32, 32, 32) > 0.7).astype(np.uint8))
+        verts = rng.rand(40, 3).astype(np.float32) - 0.5
+        faces = rng.randint(0, 40, (60, 3))
+        serialization.save_mesh(verts, faces, os.path.join(root, "model", f"{i:03d}"))
+        manifest.append({"img": img, "mask": f"mask/{i:03d}.png",
+                         "voxel": f"model/{i:03d}.npy", "model": f"model/{i:03d}.obj",
+                         "category": classes[i % len(classes)],
+                         "bbox": [int(x0), int(y0), int(x1), int(y1)]})
+    with open(os.path.join(root, "pix3d.json"), "w") as f:
+        json.dump(manifest, f)
+
+
+def phase_jpeg(kernels, card: str, root: str):
+    """JPEG photos without Pillow: (a) the committed corpus
+    ``tests/torch_jpeg_fixtures`` (every variant of
+    ``tests/torch_make_jpeg_fixtures.py``: sampling 4:4:4 to 4:1:1, grey,
+    CMYK and YCCK, progressive, restart markers, optimised tables, quality 1
+    to 100, 16-bit tables, 1x1 to 1280x960, Exif and ICC, a truncated copy)
+    decoded by ``image_io.read_image`` and ``to_rgb`` with the sha256 of
+    every result equal to what Pillow gave where the corpus was made, the
+    truncated file damaged; (b) host ms a megapixel of the 1280x960 photo
+    and its progressive twin, median of 5 (printed); (c) a 32-sample Pix3D
+    tree of the corpus's RGB photos (every other one the 1280x960 pair) as
+    JPEG, and its twin whose images are ``write_png`` of the decoded pixels:
+    ``train --model Pix3D`` for 1 epoch on the JPEG tree at the bench widths
+    (B=4, 224x224; K1 x 3 a step, every loss finite), then ``eval_model`` of
+    its checkpoint on both trees, every metric equal in every bit; (d)
+    ms/step and each batch's wait for the loader of 1-epoch runs on the two
+    trees, in turns (JPEG PNG PNG JPEG; printed, nothing claimed)."""
+    import hashlib
+    import os
+    import pickle
+
+    import torch
+
+    from meshrcnn_tpu_torch import eval_model, train
+    from meshrcnn_tpu_torch.data import fastio, image_io
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                            "torch_jpeg_fixtures")
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    fastio.reset_calls()
+    wrong, photos = [], []
+    for name, record in sorted(manifest.items()):
+        path = os.path.join(fixtures, name)
+        if record == "damaged":
+            try:
+                image_io.read_image(path)
+                wrong.append(f"{name} decoded, but Pillow finds it damaged")
+            except image_io.DamagedImageError:
+                pass
+            continue
+        pixels, mode = image_io.read_image(path)
+        got = (mode, list(pixels.shape), digest(pixels), digest(image_io.to_rgb(path)))
+        if got != (record["mode"], record["shape"], record["sha256"], record["sha256_rgb"]):
+            wrong.append(f"{name}: {got[:2]} against Pillow's {record}")
+        if mode == "RGB":
+            with open(path, "rb") as f:
+                photos.append((name, f.read(), pixels))
+    print(f"[jpeg] {len(manifest)} corpus files decoded without Pillow: "
+          f"{len(manifest) - len(wrong)} equal to Pillow's digests; calls {fastio.calls}",
+          flush=True)
+    if wrong or "PIL" in sys.modules:
+        _fail(f"jpeg corpus: {wrong}; PIL imported {'PIL' in sys.modules}")
+
+    rates = {}
+    for name in ("photo.jpg", "photo_progressive.jpg"):
+        path = os.path.join(fixtures, name)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pixels, _ = image_io.read_image(path)
+            times.append(time.perf_counter() - t0)
+        rates[name] = float(np.median(times)) * 1e3 / (pixels.shape[0] * pixels.shape[1] / 1e6)
+    print(f"[jpeg] {card}: host ms a megapixel of read_image, median of 5: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()), flush=True)
+
+    pools = ([p for p in photos if p[0].startswith("photo")],      # the 1280x960 pair
+             [p for p in photos if not p[0].startswith("photo")])
+    images = [pools[i % 2][(i // 2) % len(pools[i % 2])] for i in range(JPEG_SAMPLES)]
+    trees = {"jpeg": os.path.join(root, "pix3d_jpeg"), "png": os.path.join(root, "pix3d_png")}
+    for ext, tree in zip(("jpg", "png"), trees.values()):
+        _pix3d_tree(tree, [(raw, pixels) for _, raw, pixels in images], ext)
+    train_flags = ["--optim", "SGD", "--lr", "0.02", "--weightDecay", "1e-4",
+                   "--train_backbone", "--voxel", "3", "--num_sampels", str(JPEG_SAMPLES),
+                   "--nEpoch", "1", "--workers", "2"]
+    total, step_ms, runs = 0, {"jpeg": [], "png": []}, {}
+    with _booked_waits() as (waits, wait_line):
+        for tag in ("jpeg", "png", "png", "jpeg"):
+            _reset_counts()
+            waits.clear()
+            out = train.main(PIX3D_FULL_WIDTH + train_flags + [
+                "--dataRoot", trees[tag],
+                "--checkpoint_root", os.path.join(root, "jpeg_ck", tag, str(len(step_ms[tag])))])
+            torch.cuda.synchronize()
+            counts, meters, steps = _counts(), out["meters"], out["state"].step
+            ms = meters["batch_time"].history[-1] * 1e3
+            step_ms[tag].append(ms)
+            runs.setdefault(tag, out)
+            print(f"[jpeg] train on the {tag} tree: {steps} steps of {JPEG_BATCH}; {ms:.2f} "
+                  f"ms/step (first step {meters['warmup_time'].history[0] * 1e3:.2f} ms); "
+                  f"{wait_line(ms)}; launches {counts}", flush=True)
+            history = {k: m.history for k, m in meters.items()}
+            if (steps != JPEG_SAMPLES // JPEG_BATCH or counts != _k1_only(3 * steps)
+                    or not all(np.isfinite(h).all() for h in history.values())
+                    or meters["grads_finite"].history != [1.0]):
+                _fail(f"jpeg train on {tag}: {steps} steps, launches {counts}, meters {history}")
+            total += counts["chamfer_nn_bidir"]
+
+        metrics, confusion = {}, {}
+        for tag, tree in trees.items():
+            _reset_counts()
+            waits.clear()
+            res = eval_model.main(PIX3D_FULL_WIDTH + [
+                "--dataRoot", tree, "--model_path", runs["jpeg"]["final"], "--test_ratio", "0.5",
+                "--workers", "2", "--output_path", os.path.join(root, "jpeg_eval", tag)])
+            counts = _counts()
+            with open(res["path"], "rb") as f:
+                saved = pickle.load(f)
+            metrics[tag] = {k: v for k, v in saved.items() if k not in (
+                "confusion", "batch_time", "data_loading", "warmup_time")}
+            confusion[tag] = np.asarray(saved["confusion"])
+            batches = JPEG_SAMPLES // 2 // JPEG_BATCH
+            print(f"[jpeg] eval of the JPEG tree's checkpoint on the {tag} tree: "
+                  f"{res['batch_time'] * 1e3:.2f} ms/batch; {wait_line(res['batch_time'] * 1e3)}; "
+                  f"launches {counts}; metrics {json.dumps(metrics[tag])}", flush=True)
+            if counts != _k1_only(5 * batches) or not all(
+                    np.isfinite(v) for v in metrics[tag].values()):
+                _fail(f"jpeg eval on {tag}: launches {counts}, metrics {metrics[tag]}")
+            total += counts["chamfer_nn_bidir"]
+    same = (json.dumps(metrics["jpeg"], sort_keys=True) == json.dumps(metrics["png"],
+                                                                       sort_keys=True)
+            and np.array_equal(confusion["jpeg"], confusion["png"]))
+    print(f"[jpeg] {card}: eval metrics on the JPEG and PNG trees equal in every bit: {same}; "
+          f"ms/step in turns (JPEG PNG PNG JPEG): jpeg {step_ms['jpeg']}, png {step_ms['png']}; "
+          f"native decoder calls {fastio.calls}; PIL imported: {'PIL' in sys.modules}",
+          flush=True)
+    if not same or "PIL" in sys.modules or not fastio.calls["decode_jpeg"]:
+        _fail(f"jpeg: metrics {metrics}, decoder calls {fastio.calls}")
     kernels["chamfer_nn_bidir"]["launches"] += total
 
 
@@ -3381,6 +3564,7 @@ def main() -> None:
         timed(phase_multi_step, kernels, card, root)
         timed(phase_cli, kernels, root)
         timed(phase_real_data, kernels, card, root)
+        timed(phase_jpeg, kernels, card, root)
         timed(phase_api, kernels, root)
         timed(phase_demo, root)
         timed(phase_dp, kernels, card, root)

@@ -9,7 +9,7 @@ the reference's seed-42 shuffled train/test split exactly
 tests and benches without the 100GB+ downloads.
 
 Everything here is host numpy. Image files are decoded and resized by
-``data/image_io`` (PNG, Pillow's filters, no Pillow), meshes and voxels by the
+``data/image_io`` (PNG and JPEG, Pillow's filters, no Pillow), meshes and voxels by the
 native decoder of ``data/serialization``.
 """
 from __future__ import annotations
@@ -100,8 +100,10 @@ class pix3dDataset:
         the header (Pillow's mode name, ``image_io.image_mode``); the body of
         an "RGB" image is then decoded, so a missing, truncated or corrupt
         file is skipped as the reference's ``mpimg.imread`` would skip it. A
-        file ``image_io`` does not decode (JPEG, 16-bit, interlaced) raises:
-        dropping it would change the kept set without a word.
+        file ``image_io`` does not decode (16-bit or interlaced PNG; JPEG of
+        arithmetic coding, 4:4:0 sampling and the other features its
+        docstring lists) raises: dropping it would change the kept set
+        without a word.
 
         Decoding ~10k images takes minutes, so the kept list is cached in
         ``.pix3d_scan_cache.json`` (the JAX package's file and format), keyed
@@ -145,7 +147,7 @@ class pix3dDataset:
             try:
                 if image_io.image_mode(path) != "RGB":
                     continue
-                image_io.read_png(path)
+                image_io.read_image(path)
             except OSError:       # missing or damaged: dropped, as the reference drops it
                 continue
             kept.append(p)

@@ -1,7 +1,7 @@
-"""The port's native host decoders (``meshrcnn_tpu_torch/csrc/fastio.c``),
-called through ``ctypes`` on numpy buffers.
+"""The port's native host decoders (``meshrcnn_tpu_torch/csrc/fastio.c`` and
+``csrc/jpeg.c``), called through ``ctypes`` on numpy buffers.
 
-The library is built with ``cc`` at the first call (``ops/cuda_build.host_build``)
+Each library is built with ``cc`` at its first call (``ops/cuda_build.host_build``)
 and a failed build raises: nothing falls back to the Python parsers. ctypes
 releases the interpreter lock for the length of each call, so the loader's
 threads decode files in parallel. Each wrapper counts its calls in
@@ -28,7 +28,14 @@ _SIGNATURES = {
                                           _ptr)),
 }
 
-calls = {"parse_obj": 0, "decode_rle": 0, "png_unfilter": 0, "resample_u8": 0}
+_JPEG_SIGNATURES = {
+    "jpeg_decode": (ctypes.c_int, (ctypes.c_char_p, _i64, _i64, _i64, _i64, _ptr,
+                                   ctypes.c_char_p, _i64)),
+}
+_JPEG_DAMAGED, _JPEG_UNSUPPORTED, _JPEG_NO_MEMORY = 1, 2, 3
+
+calls = {"parse_obj": 0, "decode_rle": 0, "png_unfilter": 0, "resample_u8": 0,
+         "decode_jpeg": 0}
 _lock = threading.Lock()
 
 
@@ -117,4 +124,25 @@ def resample_u8(pixels: np.ndarray, start: np.ndarray, length: np.ndarray,
                                  out.ctypes.data) != 0:
         raise MemoryError("fastio_resample_u8 ran out of memory")
     _count("resample_u8")
+    return out
+
+
+def decode_jpeg(raw: bytes, width: int, height: int, channels: int) -> np.ndarray:
+    """The uint8 [height, width, channels] samples of a JPEG file's bytes, as
+    libjpeg-turbo gives them at Pillow's settings (RGB for a YCbCr file, CMYK
+    not inverted); ``width``, ``height`` and ``channels`` are its frame's.
+    Raises ValueError naming the feature for a file the decoder does not
+    decode, OSError naming the fault for one libjpeg could not decode."""
+    out = np.empty((height, width, channels), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    rc = cuda_build.load_host("jpeg", _JPEG_SIGNATURES).jpeg_decode(
+        raw, len(raw), width, height, channels, out.ctypes.data, msg, len(msg))
+    _count("decode_jpeg")
+    text = msg.value.decode()
+    if rc == _JPEG_UNSUPPORTED:
+        raise ValueError(text)
+    if rc == _JPEG_DAMAGED:
+        raise OSError(text)
+    if rc == _JPEG_NO_MEMORY:
+        raise MemoryError(f"jpeg_decode: {text}")
     return out

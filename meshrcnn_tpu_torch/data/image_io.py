@@ -1,23 +1,36 @@
-"""PNG reading and writing and Pillow's two resampling filters, without Pillow
-(the card's machine has none).
+"""PNG and JPEG reading, PNG writing and Pillow's two resampling filters,
+without Pillow (the card's machine has none).
 
-    pixels, mode = read_png(path)      # np.asarray(PIL.Image.open(path)), and its mode
+    pixels, mode = read_image(path)    # np.asarray(PIL.Image.open(path)), and its mode
+    pixels, mode = read_png(path)      # the same, for PNG files only
     rgb = to_rgb(path)                 # PIL.Image.open(path).convert("RGB")
+    mode = image_mode(path)            # PIL.Image.open(path).mode, from the header
     write_png(path, uint8 array)
     resize_bilinear(pixels, (w, h))    # Image.resize((w, h), BILINEAR)
     resize_nearest(pixels, (w, h))     # Image.resize((w, h), NEAREST)
 
-Only numpy, ``zlib``, ``struct`` and the native scanline unfilter
-(``data/fastio.png_unfilter``). ``read_png`` decodes 8-bit grey, grey + alpha,
-RGB, RGBA and palette images and 1, 2 and 4-bit grey and palette images, as
-Pillow does: palette images give their indices, 1-bit grey gives booleans and
-2- and 4-bit grey are scaled to 0-255 (Pillow's modes "L;2" and "L;4").
+Only numpy, ``zlib``, ``struct`` and the native decoders of ``data/fastio``
+(the PNG scanline unfilter and the JPEG decoder ``csrc/jpeg.c``). PNG: 8-bit
+grey, grey + alpha, RGB, RGBA and palette images and 1, 2 and 4-bit grey and
+palette images decode as Pillow decodes them: palette images give their
+indices, 1-bit grey gives booleans and 2- and 4-bit grey are scaled to 0-255
+(Pillow's modes "L;2" and "L;4"). JPEG: baseline and progressive Huffman
+files give what Pillow gives on libjpeg-turbo, bit for bit: mode "L" for one
+component, "RGB" for three (YCbCr converted unless the file is RGB), "CMYK"
+for four, inverted as Pillow stores Adobe's CMYK. The header walk that finds
+the mode is Pillow's (JpegImageFile._open), so a file Pillow cannot open is
+damaged here too.
 
 Errors: a file this module does not decode raises ``ValueError`` naming the
-file and the feature (16-bit samples, Adam7 interlacing, JPEG, GIF, BMP, TIFF
-and WebP by their magic bytes); a file that is not a readable image (no PNG
-signature, a bad chunk CRC, a broken zlib stream, too little data) raises
-``DamagedImageError``, an ``OSError`` like Pillow's own for such files.
+file and the feature: 16-bit PNG samples, Adam7 interlacing; JPEG arithmetic
+coding, lossless and hierarchical frames, 12-bit samples, 4:4:0
+and fractional chroma sampling, progressive scans that leave coefficients
+unsent (libjpeg smooths those blocks); GIF, BMP, TIFF and WebP by their
+magic bytes. A file that is not a readable image raises
+``DamagedImageError``, an ``OSError`` like Pillow's own for such files,
+exactly where Pillow's ``open`` or ``load`` raises: PNG without its
+signature, with a bad chunk CRC, a broken zlib stream or too little data;
+JPEG that ends before its last scanline is decoded, or that libjpeg stops on.
 
 The resizes are Pillow's (libImaging/Resample.c and the NEAREST branch of
 ``_resize``, which goes through ImagingScaleAffine in Geometry.c), reproduced
@@ -40,9 +53,14 @@ import numpy as np
 from meshrcnn_tpu_torch.data import fastio
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 # (offset, magic bytes, name) of the formats this module recognises and does not decode
-_OTHER_FORMATS = ((0, b"\xff\xd8\xff", "JPEG"), (0, b"GIF8", "GIF"), (0, b"BM", "BMP"),
-                  (0, b"II*\x00", "TIFF"), (0, b"MM\x00*", "TIFF"), (8, b"WEBP", "WebP"))
+_OTHER_FORMATS = ((0, b"GIF8", "GIF"), (0, b"BM", "BMP"), (0, b"II*\x00", "TIFF"),
+                  (0, b"MM\x00*", "TIFF"), (8, b"WEBP", "WebP"))
+_JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+# markers whose segment JpegImageFile._open reads as a frame header
+_JPEG_SOF = {0xFFC0, 0xFFC1, 0xFFC2, 0xFFC3, 0xFFC5, 0xFFC6, 0xFFC7, 0xFFC9, 0xFFCA,
+             0xFFCB, 0xFFCD, 0xFFCE, 0xFFCF, 0xFFDE}
 # (bit depth, colour type) -> Pillow's mode of the image
 _MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16",
           (8, 2): "RGB", (16, 2): "RGB",
@@ -59,10 +77,13 @@ class DamagedImageError(OSError):
 def _header(path: str, data: bytes) -> Tuple[int, int, int, int, int]:
     """(width, height, bit depth, colour type, interlace) of a PNG's IHDR."""
     if not data.startswith(PNG_SIGNATURE):
+        if data.startswith(JPEG_SIGNATURE):
+            raise ValueError(f"{path}: JPEG is not read by read_png; read_image reads it")
         for offset, magic, name in _OTHER_FORMATS:
             if data[offset:offset + len(magic)] == magic:
-                raise ValueError(f"{path}: {name} is not supported; only PNG is decoded")
-        raise DamagedImageError(f"{path}: not an image file (no PNG signature)")
+                raise ValueError(f"{path}: {name} is not supported; only PNG and JPEG are "
+                                 f"decoded")
+        raise DamagedImageError(f"{path}: not an image file (no PNG or JPEG signature)")
     if len(data) < 33 or data[12:16] != b"IHDR":
         raise DamagedImageError(f"{path}: truncated or missing IHDR chunk")
     width, height, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
@@ -72,18 +93,147 @@ def _header(path: str, data: bytes) -> Tuple[int, int, int, int, int]:
     return width, height, depth, ctype, interlace
 
 
+def _jpeg_header(path: str, data: bytes) -> Tuple[int, int, str]:
+    """(width, height, mode) of a JPEG file, read as Pillow's
+    ``JpegImageFile._open`` reads it: marker by marker up to the first SOS,
+    the last frame header giving size and mode, and raising
+    ``DamagedImageError`` wherever ``PIL.Image.open`` raises."""
+    n = len(data)
+    pos, width, height, mode, icc = 3, 0, 0, None, []
+
+    def damaged(why: str):
+        return DamagedImageError(f"{path}: {why}")
+
+    def segment() -> bytes:           # i16(fp.read(2)) - 2, then ImageFile._safe_read
+        nonlocal pos
+        if pos + 2 > n:
+            raise damaged("the file ends inside a marker")
+        size = int.from_bytes(data[pos:pos + 2], "big") - 2
+        pos += 2
+        if size <= 0:
+            return b""
+        if pos + size > n:
+            raise damaged("the file ends inside a marker segment")
+        pos += size
+        return data[pos - size:pos]
+
+    byte = 0xFF
+    while True:
+        if byte is None:
+            raise damaged("the file ends before its first scan")
+        if byte != 0xFF:              # junk between markers
+            byte, pos = (data[pos], pos + 1) if pos < n else (None, pos)
+            continue
+        if pos >= n:
+            raise damaged("the file ends inside a marker")
+        marker, pos = 0xFF00 | data[pos], pos + 1
+        if 0xFFC0 <= marker <= 0xFFFE:
+            if marker in _JPEG_SOF:
+                s = segment()
+                if len(s) < 6:
+                    raise damaged("a short frame header")
+                height, width = struct.unpack(">HH", s[1:5])
+                if s[0] == 12:
+                    raise ValueError(f"{path}: JPEG of 12-bit samples is not supported")
+                if s[0] != 8:
+                    raise damaged(f"a JPEG of {s[0]}-bit samples")
+                if s[5] not in _JPEG_MODES:
+                    raise damaged(f"a JPEG of {s[5]} components")
+                mode = _JPEG_MODES[s[5]]
+                if icc and len(min(icc)) < 14:
+                    raise damaged("a short ICC profile segment")
+                icc = []
+                if (len(s) - 6) % 3:
+                    raise damaged("a frame header of the wrong length")
+            elif marker == 0xFFDB:
+                s = segment()
+                while s:
+                    length = 65 if s[0] < 16 else 129
+                    if len(s) < length:
+                        raise damaged("a bad quantisation table")
+                    s = s[length:]
+            elif 0xFFE0 <= marker <= 0xFFEF:
+                _jpeg_app(path, marker, segment(), icc)
+            elif marker in (0xFFC4, 0xFFCC, 0xFFDA, 0xFFDC, 0xFFDD, 0xFFDF, 0xFFFE):
+                segment()
+            if marker == 0xFFDA:
+                break
+            byte, pos = (data[pos], pos + 1) if pos < n else (None, pos)
+        elif marker == 0xFFFF:        # fill byte before a marker
+            byte = 0xFF
+        elif marker == 0xFF00:
+            byte, pos = (data[pos], pos + 1) if pos < n else (None, pos)
+        else:
+            raise damaged(f"no marker at byte {pos - 2}")
+    if mode is None or width == 0 or height == 0:
+        raise damaged("no frame header before the first scan, or an empty frame")
+    return width, height, mode
+
+
+def _jpeg_app(path: str, marker: int, s: bytes, icc: list) -> None:
+    """The APPn parsing of JpegImagePlugin.APP that can fail: JFIF and Adobe
+    need their version field, a Photoshop resource block its name length;
+    ICC profile segments are kept for the frame header's check."""
+    if marker in (0xFFE0, 0xFFEE) and s.startswith(b"JFIF" if marker == 0xFFE0 else b"Adobe"):
+        if len(s) < 7:
+            raise DamagedImageError(f"{path}: a short APP{marker & 15} segment")
+    elif marker == 0xFFE2 and s.startswith(b"ICC_PROFILE\0"):
+        icc.append(s)
+    elif marker == 0xFFED and s.startswith(b"Photoshop 3.0\x00"):
+        offset = 14
+        while s[offset:offset + 4] == b"8BIM":
+            offset += 4
+            if offset + 2 > len(s):   # struct.error: the loop ends
+                break
+            code = int.from_bytes(s[offset:offset + 2], "big")
+            offset += 2
+            if offset >= len(s):      # IndexError: Image.open fails
+                raise DamagedImageError(f"{path}: a short Photoshop resource block")
+            offset += 1 + s[offset]
+            offset += offset & 1
+            if offset + 4 > len(s):
+                break
+            size = int.from_bytes(s[offset:offset + 4], "big")
+            offset += 4
+            if code == 0x03ED and len(s[offset:offset + size]) < 14:
+                break
+            offset += size
+            offset += offset & 1
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def image_mode(path: str) -> str:
     """Pillow's mode of the image file, from its header alone."""
-    with open(path, "rb") as f:
-        data = f.read(33)
+    data = _read(path)
+    if data.startswith(JPEG_SIGNATURE):
+        return _jpeg_header(path, data)[2]
     _, _, depth, ctype, _ = _header(path, data)
     return _MODES[depth, ctype]
 
 
-def _decode(path: str):
-    """(pixels as Pillow gives them, mode, palette [n, 3] uint8 or None)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _decode_jpeg(path: str, data: bytes) -> Tuple[np.ndarray, str]:
+    """(pixels as Pillow gives them, mode) of a JPEG file."""
+    width, height, mode = _jpeg_header(path, data)
+    channels = {"L": 1, "RGB": 3, "CMYK": 4}[mode]
+    try:
+        pixels = fastio.decode_jpeg(data, width, height, channels)
+    except ValueError as err:
+        raise ValueError(f"{path}: {err}") from None
+    except OSError as err:
+        raise DamagedImageError(f"{path}: {err}") from None
+    if mode == "L":
+        return pixels[..., 0], mode
+    if mode == "CMYK":                # Pillow's raw mode "CMYK;I": Adobe's inverted samples
+        return 255 - pixels, mode
+    return pixels, mode
+
+
+def _decode_png(path: str, data: bytes):
+    """(pixels as Pillow gives them, mode, palette [n, 3] uint8 or None) of a PNG."""
     width, height, depth, ctype, interlace = _header(path, data)
     if depth == 16:
         raise ValueError(f"{path}: 16-bit samples are not supported")
@@ -134,16 +284,44 @@ def _decode(path: str):
     return samples, mode, palette
 
 
+def _decode(path: str):
+    """(pixels, mode, palette or None) of a PNG or JPEG file, told apart by
+    their signatures."""
+    data = _read(path)
+    if data.startswith(JPEG_SIGNATURE):
+        return (*_decode_jpeg(path, data), None)
+    return _decode_png(path, data)
+
+
 def read_png(path: str) -> Tuple[np.ndarray, str]:
     """(``np.asarray(PIL.Image.open(path))``, Pillow's mode name) of a PNG file."""
+    pixels, mode, _ = _decode_png(path, _read(path))
+    return pixels, mode
+
+
+def read_image(path: str) -> Tuple[np.ndarray, str]:
+    """(``np.asarray(PIL.Image.open(path))``, Pillow's mode name) of a PNG or
+    JPEG file."""
     pixels, mode, _ = _decode(path)
     return pixels, mode
 
 
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert("RGB")`` of CMYK pixels (libImaging/Convert.c
+    cmyk2rgb): each channel nk - round(channel * nk / 255), nk = 255 - K."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
 def to_rgb(path: str) -> np.ndarray:
-    """``np.asarray(PIL.Image.open(path).convert("RGB"))``: grey replicated,
-    alpha dropped, palette indices looked up (indices past the palette black)."""
+    """``np.asarray(PIL.Image.open(path).convert("RGB"))`` of a PNG or JPEG
+    file: grey replicated, alpha dropped, palette indices looked up (indices
+    past the palette black), CMYK by Pillow's formula."""
     pixels, mode, palette = _decode(path)
+    if mode == "CMYK":
+        return _cmyk_to_rgb(pixels)
     if mode == "RGB":
         return pixels
     if mode == "RGBA":

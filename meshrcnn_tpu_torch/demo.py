@@ -15,7 +15,7 @@ through ``load_state_partial`` (another optimizer, a voxel-only checkpoint),
 and it stops when nothing loads. Runs on the card unless ``--device cpu``;
 without a card it raises.
 
-``main`` decodes the image (``data/image_io``: PNG, no Pillow; Pix3D images
+``main`` decodes the image (``data/image_io``: PNG or JPEG, no Pillow; Pix3D images
 resized to ``--img_size`` by Pillow's bilinear filter) and hands the [1, H,
 W, 3] array to ``run``, which builds the model, runs it and writes the files.
 """

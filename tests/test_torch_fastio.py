@@ -124,8 +124,15 @@ def test_native_entry_points_count_their_calls_and_check_their_input():
     with pytest.raises(ValueError, match="out of range"):
         fastio.resample_u8(np.zeros((1, 4, 1), np.uint8), np.array([3]), np.array([2]),
                            np.ones((1, 2), np.int32))
+    jpeg = (Path(__file__).parent / "torch_jpeg_fixtures" / "s420.jpg").read_bytes()
+    assert fastio.decode_jpeg(jpeg, 56, 40, 3).shape == (40, 56, 3)
+    with pytest.raises(OSError, match="ends inside the image data"):
+        fastio.decode_jpeg(jpeg[:len(jpeg) // 2], 56, 40, 3)
+    with pytest.raises(OSError, match="not 57x40"):
+        fastio.decode_jpeg(jpeg, 57, 40, 3)
     assert {k: fastio.calls[k] - before[k] for k in before} == {
-        "parse_obj": 1, "decode_rle": 1, "png_unfilter": 2, "resample_u8": 0}
+        "parse_obj": 1, "decode_rle": 1, "png_unfilter": 2, "resample_u8": 0,
+        "decode_jpeg": 3}
 
 
 _BUILD = ("import pathlib, sys; from meshrcnn_tpu_torch.ops import cuda_build as b; "

@@ -170,15 +170,23 @@ def _unsupported_files(root):
     _encode(rgb16, RNG.randint(0, 1 << 16, (5, 6, 3)), 16, 2)
     interlaced = root / "adam7.png"
     _encode(interlaced, RNG.randint(0, 256, (5, 6, 3)), 8, 2, interlace=1)
-    return {jpeg: "JPEG", gif: "GIF", grey16: "16-bit", rgb16: "16-bit",
-            interlaced: "interlaced"}
+    return {gif: "GIF", grey16: "16-bit", rgb16: "16-bit", interlaced: "interlaced"}
 
 
 def test_unsupported_files_raise_naming_the_file_and_the_feature(tmp_path):
     for path, feature in _unsupported_files(tmp_path).items():
-        for fn in (image_io.read_png, image_io.to_rgb):
+        for fn in (image_io.read_png, image_io.read_image, image_io.to_rgb):
             with pytest.raises(ValueError, match=re.escape(str(path)) + ".*" + feature):
                 fn(str(path))
+    # a JPEG, whatever its name says, decodes as Pillow decodes it; read_png
+    # reads PNG only and says so (tests/test_torch_jpeg.py holds the decoder)
+    jpeg = tmp_path / "photo.png"
+    with PIL.Image.open(jpeg) as im:
+        _assert_same(image_io.read_image(str(jpeg))[0], np.asarray(im))
+        _assert_same(image_io.to_rgb(str(jpeg)), np.asarray(im.convert("RGB")))
+        assert image_io.image_mode(str(jpeg)) == im.mode == "RGB"
+    with pytest.raises(ValueError, match=re.escape(str(jpeg)) + ".*JPEG"):
+        image_io.read_png(str(jpeg))
     # the header alone gives Pillow's mode of a 16-bit or interlaced PNG
     assert image_io.image_mode(str(tmp_path / "grey16.png")) == "I;16"
     assert image_io.image_mode(str(tmp_path / "rgb16.png")) == "RGB"

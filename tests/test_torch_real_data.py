@@ -99,25 +99,30 @@ def test_port_reads_dataset_files_without_pillow_equal_to_jax(shapenet_dir, tmp_
 
 def test_pix3d_scan_drops_what_the_reference_drops_and_raises_on_jpeg(tmp_path, monkeypatch):
     """A grey 16-bit PNG (Pillow's mode "I;16") and a truncated RGB PNG are
-    dropped, as the JAX package drops them; a JPEG is not decoded: the scan
-    raises naming it instead of dropping it without a word."""
+    dropped, as the JAX package drops them; a JPEG photo is decoded and kept,
+    as the JAX package keeps it; a JPEG the port does not decode
+    (arithmetic-coded) is not dropped without a word: the scan raises naming it."""
     _write_pix3d_fixture(tmp_path)
     manifest = json.loads((tmp_path / "pix3d.json").read_text())
     PIL.Image.fromarray(np.full((40, 60), 1000, np.uint16)).save(tmp_path / "img" / "g16.png")
     rgb = (tmp_path / "img" / "a.png").read_bytes()
     (tmp_path / "img" / "cut.png").write_bytes(rgb[:len(rgb) // 2])
-    manifest += [dict(manifest[0], img="img/g16.png"), dict(manifest[0], img="img/cut.png")]
+    PIL.Image.open(tmp_path / "img" / "a.png").save(tmp_path / "img" / "photo.jpg")
+    manifest += [dict(manifest[0], img=f"img/{name}") for name in ("g16.png", "cut.png",
+                                                                   "photo.jpg")]
     (tmp_path / "pix3d.json").write_text(json.dumps(manifest))
     want = [r["img"] for r in jd.pix3dDataset(str(tmp_path)).records]
     (tmp_path / ".pix3d_scan_cache.json").unlink()
     with monkeypatch.context() as m:
         _block_pil(m)
         assert [r["img"] for r in pd.pix3dDataset(str(tmp_path)).records] == want == [
-            "img/a.png", "img/b.png", "img/e.png"]
-    PIL.Image.open(tmp_path / "img" / "a.png").save(tmp_path / "img" / "photo.jpg")
+            "img/a.png", "img/b.png", "img/e.png", "img/photo.jpg"]
+    arith = bytearray((tmp_path / "img" / "photo.jpg").read_bytes())
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9           # SOF9: arithmetic coding
+    (tmp_path / "img" / "arith.jpg").write_bytes(bytes(arith))
     (tmp_path / "pix3d.json").write_text(json.dumps(manifest + [dict(manifest[0],
-                                                                      img="img/photo.jpg")]))
-    with pytest.raises(ValueError, match="photo.jpg.*JPEG"):
+                                                                      img="img/arith.jpg")]))
+    with pytest.raises(ValueError, match="arith.jpg.*arithmetic coding"):
         pd.pix3dDataset(str(tmp_path))
 
 
