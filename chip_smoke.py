@@ -1520,9 +1520,10 @@ PIX3D_FULL_WIDTH = ["--model", "Pix3D", "-b", str(JPEG_BATCH), "--img_size", "22
                     "--print_freq", "1000"]
 
 
-def _pix3d_tree(root: str, images: list, ext: str, seed: int = 0) -> None:
-    """A Pix3D tree of the given uint8 RGB images, written as ``ext`` ("jpg":
-    the bytes given; "png": ``image_io.write_png`` of the pixels), with a
+def _pix3d_tree(root: str, images: list, seed: int = 0) -> None:
+    """A Pix3D tree of the given images, each (file name, its bytes or None,
+    uint8 RGB pixels or the [H, W] of a file the scan drops): bytes are
+    written as given, None as ``image_io.write_png`` of the pixels; with a
     PNG mask of a box, a mesh and a 32^3 voxel grid a sample, made from
     ``seed``."""
     import os
@@ -1535,14 +1536,14 @@ def _pix3d_tree(root: str, images: list, ext: str, seed: int = 0) -> None:
         os.makedirs(os.path.join(root, d), exist_ok=True)
     classes = sorted(PIX3D_CLASSES)
     manifest = []
-    for i, (raw, pixels) in enumerate(images):
-        h, w = pixels.shape[:2]
-        img = f"img/{i:03d}.{ext}"
-        if ext == "jpg":
+    for i, (name, raw, pixels) in enumerate(images):
+        h, w = np.shape(pixels)[:2] if np.ndim(pixels) == 3 else pixels
+        img = f"img/{i:03d}_{name}"
+        if raw is None:
+            image_io.write_png(os.path.join(root, img), pixels)
+        else:
             with open(os.path.join(root, img), "wb") as f:
                 f.write(raw)
-        else:
-            image_io.write_png(os.path.join(root, img), pixels)
         x0, y0 = rng.randint(0, max(w // 3, 1)), rng.randint(0, max(h // 3, 1))
         x1, y1 = x0 + max(w // 2, 1), y0 + max(h // 2, 1)
         mask = np.zeros((h, w), np.uint8)
@@ -1561,23 +1562,59 @@ def _pix3d_tree(root: str, images: list, ext: str, seed: int = 0) -> None:
         json.dump(manifest, f)
 
 
+def _png(pixels: np.ndarray, depth: int = 8, interlace: bool = False) -> bytes:
+    """An RGB PNG of uint8 pixels [H, W, 3]: 8-bit, or 16-bit samples whose
+    high byte is the pixel; Adam7-interlaced or not; filter 0 on every
+    scanline."""
+    import struct
+    import zlib
+
+    h, w = pixels.shape[:2]
+    samples = (pixels.astype(np.uint16) * 257).astype(">u2") if depth == 16 else pixels
+    passes = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+              (0, 1, 2, 2), (1, 0, 2, 1)) if interlace else ((0, 0, 1, 1),)
+    scanlines = b""
+    for y0, x0, dy, dx in passes:
+        part = samples[y0::dy, x0::dx]
+        if part.size:
+            flat = part.reshape(part.shape[0], -1).view(np.uint8)
+            scanlines += np.concatenate([np.zeros((len(flat), 1), np.uint8), flat], 1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2, 0, 0, int(interlace)))
+            + chunk(b"IDAT", zlib.compress(scanlines, 6)) + chunk(b"IEND", b""))
+
+
 def phase_jpeg(kernels, card: str, root: str):
-    """JPEG photos without Pillow: (a) the committed corpus
+    """Photos without Pillow: (a) the committed corpus
     ``tests/torch_jpeg_fixtures`` (every variant of
-    ``tests/torch_make_jpeg_fixtures.py``: sampling 4:4:4 to 4:1:1, grey,
-    CMYK and YCCK, progressive, restart markers, optimised tables, quality 1
-    to 100, 16-bit tables, 1x1 to 1280x960, Exif and ICC, a truncated copy)
-    decoded by ``image_io.read_image`` and ``to_rgb`` with the sha256 of
-    every result equal to what Pillow gave where the corpus was made, the
-    truncated file damaged; (b) host ms a megapixel of the 1280x960 photo
-    and its progressive twin, median of 5 (printed); (c) a 32-sample Pix3D
-    tree of the corpus's RGB photos (every other one the 1280x960 pair) as
-    JPEG, and its twin whose images are ``write_png`` of the decoded pixels:
-    ``train --model Pix3D`` for 1 epoch on the JPEG tree at the bench widths
-    (B=4, 224x224; K1 x 3 a step, every loss finite), then ``eval_model`` of
-    its checkpoint on both trees, every metric equal in every bit; (d)
-    ms/step and each batch's wait for the loader of 1-epoch runs on the two
-    trees, in turns (JPEG PNG PNG JPEG; printed, nothing claimed)."""
+    ``tests/torch_make_jpeg_fixtures.py``: sampling 4:4:4 to 4:1:1, 4:4:0,
+    3x1, 1x4 and mixed ratios, grey, CMYK and YCCK, progressive, arithmetic
+    coding sequential and progressive with restarts and DAC conditioning,
+    lossless frames of predictors 1-7, scans that leave coefficients unsent
+    (smoothed), restart markers, optimised tables, quality 1 to 100, 16-bit
+    tables, 1x1 to 1280x960, Exif and ICC; a truncated copy, 12-bit,
+    hierarchical, fractional-ratio and YCbCr lossless files) decoded by
+    ``image_io.read_image`` and ``to_rgb`` with the sha256 of every result
+    equal to what Pillow gave where the corpus was made, the files Pillow
+    refuses damaged; (b) host ms a megapixel, median of 5, of
+    the 1280x960 photo and its progressive twin, the 480x360 arithmetic
+    photo and its progressive twin, the 4:4:0 photo and an Adam7 RGB PNG of
+    the 1280x960 photo's pixels (printed); (c) the mixed tree: 32 Pix3D
+    samples of the corpus's RGB photos, every other one a photo (the five
+    photos, that Adam7 PNG and a 16-bit RGB PNG of the same pixels), the
+    others the small files, one of each newly decoded kind in turn, plus
+    files the scan drops (the damaged corpus files, a truncated arithmetic
+    file); and its plain twin, ``write_png`` of each kept image's decoded
+    pixels and the same dropped files. Both scans keep the 32. ``train
+    --model Pix3D`` for 1 epoch on the mixed tree at the bench widths (B=4,
+    224x224; K1 x 3 a step, every loss finite), then ``eval_model`` of its
+    checkpoint on both trees, every metric equal in every bit; (d) ms/step
+    and each batch's wait for the loader of 1-epoch runs on the two trees,
+    in turns (mixed plain plain mixed; printed, nothing claimed)."""
     import hashlib
     import os
     import pickle
@@ -1585,7 +1622,7 @@ def phase_jpeg(kernels, card: str, root: str):
     import torch
 
     from meshrcnn_tpu_torch import eval_model, train
-    from meshrcnn_tpu_torch.data import fastio, image_io
+    from meshrcnn_tpu_torch.data import datasets, fastio, image_io
 
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                             "torch_jpeg_fixtures")
@@ -1594,8 +1631,12 @@ def phase_jpeg(kernels, card: str, root: str):
 
     def digest(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def read(name):
+        with open(os.path.join(fixtures, name), "rb") as f:
+            return f.read()
     fastio.reset_calls()
-    wrong, photos = [], []
+    wrong, photos, refused = [], {}, []
     for name, record in sorted(manifest.items()):
         path = os.path.join(fixtures, name)
         if record == "damaged":
@@ -1603,24 +1644,33 @@ def phase_jpeg(kernels, card: str, root: str):
                 image_io.read_image(path)
                 wrong.append(f"{name} decoded, but Pillow finds it damaged")
             except image_io.DamagedImageError:
-                pass
+                refused.append(name)
             continue
         pixels, mode = image_io.read_image(path)
         got = (mode, list(pixels.shape), digest(pixels), digest(image_io.to_rgb(path)))
         if got != (record["mode"], record["shape"], record["sha256"], record["sha256_rgb"]):
             wrong.append(f"{name}: {got[:2]} against Pillow's {record}")
         if mode == "RGB":
-            with open(path, "rb") as f:
-                photos.append((name, f.read(), pixels))
+            photos[name] = (read(name), pixels)
     print(f"[jpeg] {len(manifest)} corpus files decoded without Pillow: "
-          f"{len(manifest) - len(wrong)} equal to Pillow's digests; calls {fastio.calls}",
-          flush=True)
+          f"{len(manifest) - len(wrong)} equal to Pillow's digests, {len(refused)} of them "
+          f"damaged as Pillow finds them; calls {fastio.calls}", flush=True)
     if wrong or "PIL" in sys.modules:
         _fail(f"jpeg corpus: {wrong}; PIL imported {'PIL' in sys.modules}")
 
+    big = photos["photo.jpg"][1]
+    pngs = {"photo_adam7.png": _png(big, interlace=True), "photo_16bit.png": _png(big, 16)}
+    for name, raw in pngs.items():
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(raw)
+        pixels, mode = image_io.read_image(os.path.join(root, name))
+        if mode != "RGB" or not np.array_equal(pixels, big):
+            _fail(f"jpeg: {name} decodes as {mode} {pixels.shape}, not the photo's pixels")
+        photos[name] = (raw, big)
     rates = {}
-    for name in ("photo.jpg", "photo_progressive.jpg"):
-        path = os.path.join(fixtures, name)
+    for name in ("photo.jpg", "photo_progressive.jpg", "photo_arith.jpg",
+                 "photo_arith_progressive.jpg", "photo_440.jpg", "photo_adam7.png"):
+        path = os.path.join(root if name.endswith(".png") else fixtures, name)
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1630,18 +1680,47 @@ def phase_jpeg(kernels, card: str, root: str):
     print(f"[jpeg] {card}: host ms a megapixel of read_image, median of 5: "
           + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()), flush=True)
 
-    pools = ([p for p in photos if p[0].startswith("photo")],      # the 1280x960 pair
-             [p for p in photos if not p[0].startswith("photo")])
-    images = [pools[i % 2][(i // 2) % len(pools[i % 2])] for i in range(JPEG_SAMPLES)]
-    trees = {"jpeg": os.path.join(root, "pix3d_jpeg"), "png": os.path.join(root, "pix3d_png")}
-    for ext, tree in zip(("jpg", "png"), trees.values()):
-        _pix3d_tree(tree, [(raw, pixels) for _, raw, pixels in images], ext)
+    # the small files one of each newly decoded kind at a time, then the rest
+    new_kinds = ("arith", "lossless", "s440", "s141", "s311", "s_mixed", "smooth")
+
+    def kind(name):
+        return next((k for k in new_kinds if name.startswith(k)), None)
+    large = [n for n in photos if n.startswith("photo")]
+    small = sorted((n for n in photos if not n.startswith("photo")), key=lambda n: (
+        kind(n) is None, sorted(m for m in photos if kind(m) == kind(n)).index(n), n))
+    kept = [large[(i // 2) % len(large)] if i % 2 == 0 else small[(i // 2) % len(small)]
+            for i in range(JPEG_SAMPLES)]
+    dropped = [(n, read(n), (40, 56)) for n in refused] + [
+        ("cut_arith_s420.jpg", read("arith_s420.jpg")[:500], (40, 56))]
+    # the dropped files spread among the kept ones, at the same places in both trees
+    slots = {4 + 7 * k: d for k, d in enumerate(dropped)}
+    entries = {"mixed": [], "plain": []}
+    for i, name in enumerate(kept):
+        if i in slots:
+            for tag in entries:
+                entries[tag].append(slots[i])
+        raw, pixels = photos[name]
+        entries["mixed"].append((name, raw, pixels))
+        entries["plain"].append((name.rsplit(".", 1)[0] + ".png", None, pixels))
+    trees = {tag: os.path.join(root, f"pix3d_{tag}") for tag in entries}
+    for tag, tree in trees.items():
+        _pix3d_tree(tree, entries[tag])
+        scan = datasets.pix3dDataset(tree)
+        names = [os.path.basename(r["img"]).split("_", 1)[1] for r in scan.records]
+        if len(scan) != JPEG_SAMPLES or names != [e[0] for e in entries[tag]
+                                                  if np.ndim(e[2]) == 3]:
+            _fail(f"jpeg: the scan of the {tag} tree kept {len(scan)} of "
+                  f"{len(entries[tag])}: {names}")
+    print(f"[jpeg] the scans kept {JPEG_SAMPLES} of {JPEG_SAMPLES + len(dropped)} on both "
+          f"trees; the mixed tree's kinds: {sorted(set(kept))}; dropped: "
+          f"{[d[0] for d in dropped]}", flush=True)
+
     train_flags = ["--optim", "SGD", "--lr", "0.02", "--weightDecay", "1e-4",
                    "--train_backbone", "--voxel", "3", "--num_sampels", str(JPEG_SAMPLES),
                    "--nEpoch", "1", "--workers", "2"]
-    total, step_ms, runs = 0, {"jpeg": [], "png": []}, {}
+    total, step_ms, runs = 0, {"mixed": [], "plain": []}, {}
     with _booked_waits() as (waits, wait_line):
-        for tag in ("jpeg", "png", "png", "jpeg"):
+        for tag in ("mixed", "plain", "plain", "mixed"):
             _reset_counts()
             waits.clear()
             out = train.main(PIX3D_FULL_WIDTH + train_flags + [
@@ -1667,7 +1746,7 @@ def phase_jpeg(kernels, card: str, root: str):
             _reset_counts()
             waits.clear()
             res = eval_model.main(PIX3D_FULL_WIDTH + [
-                "--dataRoot", tree, "--model_path", runs["jpeg"]["final"], "--test_ratio", "0.5",
+                "--dataRoot", tree, "--model_path", runs["mixed"]["final"], "--test_ratio", "0.5",
                 "--workers", "2", "--output_path", os.path.join(root, "jpeg_eval", tag)])
             counts = _counts()
             with open(res["path"], "rb") as f:
@@ -1676,21 +1755,22 @@ def phase_jpeg(kernels, card: str, root: str):
                 "confusion", "batch_time", "data_loading", "warmup_time")}
             confusion[tag] = np.asarray(saved["confusion"])
             batches = JPEG_SAMPLES // 2 // JPEG_BATCH
-            print(f"[jpeg] eval of the JPEG tree's checkpoint on the {tag} tree: "
+            print(f"[jpeg] eval of the mixed tree's checkpoint on the {tag} tree: "
                   f"{res['batch_time'] * 1e3:.2f} ms/batch; {wait_line(res['batch_time'] * 1e3)}; "
                   f"launches {counts}; metrics {json.dumps(metrics[tag])}", flush=True)
             if counts != _k1_only(5 * batches) or not all(
                     np.isfinite(v) for v in metrics[tag].values()):
                 _fail(f"jpeg eval on {tag}: launches {counts}, metrics {metrics[tag]}")
             total += counts["chamfer_nn_bidir"]
-    same = (json.dumps(metrics["jpeg"], sort_keys=True) == json.dumps(metrics["png"],
-                                                                       sort_keys=True)
-            and np.array_equal(confusion["jpeg"], confusion["png"]))
-    print(f"[jpeg] {card}: eval metrics on the JPEG and PNG trees equal in every bit: {same}; "
-          f"ms/step in turns (JPEG PNG PNG JPEG): jpeg {step_ms['jpeg']}, png {step_ms['png']}; "
-          f"native decoder calls {fastio.calls}; PIL imported: {'PIL' in sys.modules}",
-          flush=True)
-    if not same or "PIL" in sys.modules or not fastio.calls["decode_jpeg"]:
+    same = (json.dumps(metrics["mixed"], sort_keys=True) == json.dumps(metrics["plain"],
+                                                                        sort_keys=True)
+            and np.array_equal(confusion["mixed"], confusion["plain"]))
+    print(f"[jpeg] {card}: eval metrics on the mixed and plain trees equal in every bit: {same}; "
+          f"ms/step in turns (mixed plain plain mixed): mixed {step_ms['mixed']}, plain "
+          f"{step_ms['plain']}; native decoder calls {fastio.calls}; PIL imported: "
+          f"{'PIL' in sys.modules}", flush=True)
+    if (not same or "PIL" in sys.modules or not fastio.calls["decode_jpeg"]
+            or not fastio.calls["png_adam7"]):
         _fail(f"jpeg: metrics {metrics}, decoder calls {fastio.calls}")
     kernels["chamfer_nn_bidir"]["launches"] += total
 

@@ -5,6 +5,7 @@
  *   fastio_parse_obj     OBJ text -> float32 vertices [V,3], int64 faces [F,3]
  *   fastio_decode_rle    binvox payload of (value, count) byte pairs -> bytes
  *   fastio_png_unfilter  PNG scanlines (filter byte + row) -> raw rows
+ *   fastio_png_adam7     the seven passes of an Adam7-interlaced PNG -> raw rows
  *   fastio_resample_u8   one pass of Pillow's 8-bit convolution resize
  *   fastio_free          frees what fastio_parse_obj allocated
  *
@@ -16,7 +17,10 @@
  * as written (the caller turns 1-based into 0-based). The PNG unfilter undoes
  * the five filter types of the PNG specification (section 9): None, Sub, Up,
  * Average and Paeth; Sub, Average and Paeth read the pixel to the left, which
- * is why this loop is native and not numpy. The resample pass is Pillow's
+ * is why this loop is native and not numpy. Adam7 (section 8.2) unfilters
+ * each of its seven passes as an image of its own width and scatters the
+ * pixels into the rows of the whole image, bit by bit below 8 bits a pixel.
+ * The resample pass is Pillow's
  * ImagingResampleHorizontal_8bpc / Vertical_8bpc (libImaging/Resample.c) on
  * coefficients the caller computes: a 2^21 rounding bias, 22 fractional bits,
  * clipped to 0-255.
@@ -189,5 +193,53 @@ int fastio_resample_u8(const uint8_t *in, int64_t outer, int64_t n_in, int64_t i
         }
     }
     free(acc);
+    return 0;
+}
+
+/* raw: len bytes of the seven passes' scanlines, the empty passes left out;
+ * out: height rows of (width * bits + 7) / 8 bytes, bits being a pixel's.
+ * Returns 0, -1 when raw is too short, -2 when out of memory, or 1 + the
+ * scanline (counted over all passes) whose filter type is not 0-4. */
+int64_t fastio_png_adam7(const uint8_t *raw, int64_t len, int64_t width, int64_t height,
+                         int64_t bits, uint8_t *out) {
+    static const int x0[7] = {0, 4, 0, 2, 0, 1, 0}, y0[7] = {0, 0, 4, 0, 2, 0, 1};
+    static const int dx[7] = {8, 8, 4, 4, 2, 2, 1}, dy[7] = {8, 8, 8, 4, 4, 2, 2};
+    int64_t stride = (width * bits + 7) / 8, bpp = bits >= 8 ? bits / 8 : 1, pos = 0, line = 0;
+    memset(out, 0, (size_t)(height * stride));
+    /* no pass has more than width pixels a row and (height + 1) / 2 rows */
+    uint8_t *pass = malloc((size_t)(stride * ((height + 1) / 2) + 1));
+    if (!pass) return -2;
+    for (int p = 0; p < 7; p++) {
+        int64_t pw = width > x0[p] ? (width - x0[p] + dx[p] - 1) / dx[p] : 0;
+        int64_t ph = height > y0[p] ? (height - y0[p] + dy[p] - 1) / dy[p] : 0;
+        if (pw == 0 || ph == 0) continue;
+        int64_t pstride = (pw * bits + 7) / 8;
+        if (pos + ph * (pstride + 1) > len) {
+            free(pass);
+            return -1;
+        }
+        int64_t bad = fastio_png_unfilter(raw + pos, ph, pstride, bpp, pass);
+        if (bad) {
+            free(pass);
+            return line + bad;
+        }
+        for (int64_t r = 0; r < ph; r++) {
+            const uint8_t *src = pass + r * pstride;
+            uint8_t *dst = out + (y0[p] + r * dy[p]) * stride;
+            for (int64_t i = 0; i < pw; i++) {
+                int64_t x = x0[p] + i * dx[p];
+                if (bits >= 8) {
+                    memcpy(dst + x * bpp, src + i * bpp, (size_t)bpp);
+                } else {
+                    int64_t si = i * bits, di = x * bits;
+                    int v = (src[si / 8] >> (8 - bits - si % 8)) & ((1 << bits) - 1);
+                    dst[di / 8] |= (uint8_t)(v << (8 - bits - di % 8));
+                }
+            }
+        }
+        pos += ph * (pstride + 1);
+        line += ph;
+    }
+    free(pass);
     return 0;
 }

@@ -99,11 +99,11 @@ class pix3dDataset:
         would shift every index of the seed-42 split. The mode check reads
         the header (Pillow's mode name, ``image_io.image_mode``); the body of
         an "RGB" image is then decoded, so a missing, truncated or corrupt
-        file is skipped as the reference's ``mpimg.imread`` would skip it. A
-        file ``image_io`` does not decode (16-bit or interlaced PNG; JPEG of
-        arithmetic coding, 4:4:0 sampling and the other features its
-        docstring lists) raises: dropping it would change the kept set
-        without a word.
+        file, or one Pillow refuses (a 12-bit or hierarchical JPEG), is
+        skipped (``DamagedImageError`` is an ``OSError``) as the JAX scan's
+        ``Image.open`` / ``load`` skips it. A file ``image_io`` does not
+        decode (GIF, BMP, TIFF, WebP) raises: dropping it would change the
+        kept set without a word.
 
         Decoding ~10k images takes minutes, so the kept list is cached in
         ``.pix3d_scan_cache.json`` (the JAX package's file and format), keyed
@@ -170,7 +170,7 @@ class pix3dDataset:
         image = _load_image(os.path.join(self.root, p["img"]))
         voxels = load_voxels(os.path.join(self.root, p["voxel"]))
         mesh = load_mesh(os.path.join(self.root, p["model"]))
-        mask = image_io.read_png(os.path.join(self.root, p["mask"]))[0].astype(np.float32)
+        mask = image_io.read_image(os.path.join(self.root, p["mask"]))[0].astype(np.float32)
         if mask.ndim == 3:
             mask = mask[..., 0]
         boxes = np.asarray(p["bbox"], dtype=np.float32).reshape(1, 4)

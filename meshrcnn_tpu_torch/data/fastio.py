@@ -24,6 +24,7 @@ _SIGNATURES = {
     "fastio_free": (None, (_ptr,)),
     "fastio_decode_rle": (_i64, (ctypes.c_char_p, _i64, _ptr, _i64)),
     "fastio_png_unfilter": (_i64, (ctypes.c_char_p, _i64, _i64, _i64, _ptr)),
+    "fastio_png_adam7": (_i64, (ctypes.c_char_p, _i64, _i64, _i64, _i64, _ptr)),
     "fastio_resample_u8": (ctypes.c_int, (_ptr, _i64, _i64, _i64, _ptr, _ptr, _ptr, _i64, _i64,
                                           _ptr)),
 }
@@ -32,10 +33,10 @@ _JPEG_SIGNATURES = {
     "jpeg_decode": (ctypes.c_int, (ctypes.c_char_p, _i64, _i64, _i64, _i64, _ptr,
                                    ctypes.c_char_p, _i64)),
 }
-_JPEG_DAMAGED, _JPEG_UNSUPPORTED, _JPEG_NO_MEMORY = 1, 2, 3
+_JPEG_DAMAGED, _JPEG_NO_MEMORY = 1, 3
 
-calls = {"parse_obj": 0, "decode_rle": 0, "png_unfilter": 0, "resample_u8": 0,
-         "decode_jpeg": 0}
+calls = {"parse_obj": 0, "decode_rle": 0, "png_unfilter": 0, "png_adam7": 0,
+         "resample_u8": 0, "decode_jpeg": 0}
 _lock = threading.Lock()
 
 
@@ -102,6 +103,24 @@ def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def png_adam7(raw: bytes, width: int, height: int, bits: int) -> np.ndarray:
+    """The uint8 [height, (width * bits + 7) // 8] rows of an Adam7-interlaced
+    PNG image of ``bits`` a pixel, from its seven passes' scanlines (each
+    pass unfiltered as an image of its own width, the empty ones absent).
+    Raises ValueError when ``raw`` is too short or a filter type is outside
+    0-4."""
+    out = np.empty((height, (width * bits + 7) // 8), np.uint8)
+    rc = _lib().fastio_png_adam7(raw, len(raw), width, height, bits, out.ctypes.data)
+    _count("png_adam7")
+    if rc == -1:
+        raise ValueError(f"{len(raw)} bytes for the seven passes of a {width}x{height} image")
+    if rc == -2:
+        raise MemoryError("fastio_png_adam7 ran out of memory")
+    if rc:
+        raise ValueError(f"interlaced scanline {rc - 1} has a filter type outside 0-4")
+    return out
+
+
 def resample_u8(pixels: np.ndarray, start: np.ndarray, length: np.ndarray,
                 weights: np.ndarray) -> np.ndarray:
     """One pass of Pillow's 8-bit resize along axis 1 of uint8 ``pixels``
@@ -131,16 +150,13 @@ def decode_jpeg(raw: bytes, width: int, height: int, channels: int) -> np.ndarra
     """The uint8 [height, width, channels] samples of a JPEG file's bytes, as
     libjpeg-turbo gives them at Pillow's settings (RGB for a YCbCr file, CMYK
     not inverted); ``width``, ``height`` and ``channels`` are its frame's.
-    Raises ValueError naming the feature for a file the decoder does not
-    decode, OSError naming the fault for one libjpeg could not decode."""
+    Raises OSError naming the fault for a file libjpeg could not decode."""
     out = np.empty((height, width, channels), np.uint8)
     msg = ctypes.create_string_buffer(256)
     rc = cuda_build.load_host("jpeg", _JPEG_SIGNATURES).jpeg_decode(
         raw, len(raw), width, height, channels, out.ctypes.data, msg, len(msg))
     _count("decode_jpeg")
     text = msg.value.decode()
-    if rc == _JPEG_UNSUPPORTED:
-        raise ValueError(text)
     if rc == _JPEG_DAMAGED:
         raise OSError(text)
     if rc == _JPEG_NO_MEMORY:

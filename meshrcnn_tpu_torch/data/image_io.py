@@ -10,27 +10,29 @@ without Pillow (the card's machine has none).
     resize_nearest(pixels, (w, h))     # Image.resize((w, h), NEAREST)
 
 Only numpy, ``zlib``, ``struct`` and the native decoders of ``data/fastio``
-(the PNG scanline unfilter and the JPEG decoder ``csrc/jpeg.c``). PNG: 8-bit
-grey, grey + alpha, RGB, RGBA and palette images and 1, 2 and 4-bit grey and
-palette images decode as Pillow decodes them: palette images give their
-indices, 1-bit grey gives booleans and 2- and 4-bit grey are scaled to 0-255
-(Pillow's modes "L;2" and "L;4"). JPEG: baseline and progressive Huffman
-files give what Pillow gives on libjpeg-turbo, bit for bit: mode "L" for one
-component, "RGB" for three (YCbCr converted unless the file is RGB), "CMYK"
-for four, inverted as Pillow stores Adobe's CMYK. The header walk that finds
-the mode is Pillow's (JpegImageFile._open), so a file Pillow cannot open is
-damaged here too.
+(the PNG scanline unfilter and Adam7 de-interlace, and the JPEG decoder
+``csrc/jpeg.c``). A PNG or JPEG file gives exactly what Pillow gives it.
+PNG: every bit depth and colour type, interlaced (Adam7) or not, in
+Pillow's modes: palette images give their indices, 1-bit grey gives
+booleans, 2- and 4-bit grey are scaled to 0-255 (Pillow's "L;2" and "L;4"),
+16-bit grey is "I;16" (the uint16 values), 16-bit RGB, grey + alpha and
+RGBA give the high byte of each sample ("RGB", and "RGBA" with the grey
+copied thrice). JPEG: baseline, progressive, arithmetic-coded and lossless
+files, any integral sampling ratio, give what Pillow gives on libjpeg-turbo,
+bit for bit: mode "L" for one component, "RGB" for three (YCbCr converted
+unless the file is RGB), "CMYK" for four, inverted as Pillow stores Adobe's
+CMYK. The header walk that finds the mode is Pillow's
+(JpegImageFile._open), so a file Pillow cannot open is damaged here too.
 
-Errors: a file this module does not decode raises ``ValueError`` naming the
-file and the feature: 16-bit PNG samples, Adam7 interlacing; JPEG arithmetic
-coding, lossless and hierarchical frames, 12-bit samples, 4:4:0
-and fractional chroma sampling, progressive scans that leave coefficients
-unsent (libjpeg smooths those blocks); GIF, BMP, TIFF and WebP by their
-magic bytes. A file that is not a readable image raises
-``DamagedImageError``, an ``OSError`` like Pillow's own for such files,
-exactly where Pillow's ``open`` or ``load`` raises: PNG without its
-signature, with a bad chunk CRC, a broken zlib stream or too little data;
-JPEG that ends before its last scanline is decoded, or that libjpeg stops on.
+Errors: a file that is not a readable image raises ``DamagedImageError``,
+an ``OSError`` like Pillow's own for such files, exactly where Pillow's
+``open`` or ``load`` raises: PNG without its signature, with a bad chunk
+CRC, a broken zlib stream or too little data; JPEG that ends before its
+last scanline is decoded, or that libjpeg stops on (hierarchical frames,
+samples of other than 8 bits, fractional sampling ratios, an arithmetic-
+coded scan that runs past one of Pillow's 64 KiB reads). ``ValueError``
+names the file and the format for what this module does not decode: GIF,
+BMP, TIFF and WebP, by their magic bytes.
 
 The resizes are Pillow's (libImaging/Resample.c and the NEAREST branch of
 ``_resize``, which goes through ImagingScaleAffine in Geometry.c), reproduced
@@ -86,7 +88,9 @@ def _header(path: str, data: bytes) -> Tuple[int, int, int, int, int]:
         raise DamagedImageError(f"{path}: not an image file (no PNG or JPEG signature)")
     if len(data) < 33 or data[12:16] != b"IHDR":
         raise DamagedImageError(f"{path}: truncated or missing IHDR chunk")
-    width, height, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
+    width, height, depth, ctype, _, filtering, interlace = struct.unpack(">IIBBBBB", data[16:29])
+    if filtering:                     # PngImagePlugin's IHDR check; any interlace flag is Adam7
+        raise DamagedImageError(f"{path}: filter method {filtering}")
     if (depth, ctype) not in _MODES or width == 0 or height == 0:
         raise DamagedImageError(f"{path}: bit depth {depth} with colour type {ctype}, "
                                 f"size {width}x{height}")
@@ -133,8 +137,6 @@ def _jpeg_header(path: str, data: bytes) -> Tuple[int, int, str]:
                 if len(s) < 6:
                     raise damaged("a short frame header")
                 height, width = struct.unpack(">HH", s[1:5])
-                if s[0] == 12:
-                    raise ValueError(f"{path}: JPEG of 12-bit samples is not supported")
                 if s[0] != 8:
                     raise damaged(f"a JPEG of {s[0]}-bit samples")
                 if s[5] not in _JPEG_MODES:
@@ -221,8 +223,6 @@ def _decode_jpeg(path: str, data: bytes) -> Tuple[np.ndarray, str]:
     channels = {"L": 1, "RGB": 3, "CMYK": 4}[mode]
     try:
         pixels = fastio.decode_jpeg(data, width, height, channels)
-    except ValueError as err:
-        raise ValueError(f"{path}: {err}") from None
     except OSError as err:
         raise DamagedImageError(f"{path}: {err}") from None
     if mode == "L":
@@ -235,10 +235,6 @@ def _decode_jpeg(path: str, data: bytes) -> Tuple[np.ndarray, str]:
 def _decode_png(path: str, data: bytes):
     """(pixels as Pillow gives them, mode, palette [n, 3] uint8 or None) of a PNG."""
     width, height, depth, ctype, interlace = _header(path, data)
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit samples are not supported")
-    if interlace:
-        raise ValueError(f"{path}: Adam7-interlaced PNG is not supported")
     idat, palette, pos = [], None, 8
     while True:
         if pos + 12 > len(data):
@@ -266,13 +262,23 @@ def _decode_png(path: str, data: bytes):
     channels = _CHANNELS[ctype]
     stride = (width * channels * depth + 7) // 8
     try:
-        rows = fastio.png_unfilter(raw, height, stride, channels * depth // 8)
+        if interlace:
+            rows = fastio.png_adam7(raw, width, height, channels * depth)
+        else:
+            rows = fastio.png_unfilter(raw, height, stride, channels * depth // 8)
     except ValueError as err:
         raise DamagedImageError(f"{path}: {err}") from None
     mode = _MODES[depth, ctype]
     if depth == 8:
         pixels = rows.reshape(height, width, channels)
         return (pixels[..., 0] if channels == 1 else pixels), mode, palette
+    if depth == 16:                   # big-endian samples, in Pillow's raw modes
+        if ctype == 0:                # "I;16B": the values
+            return rows.view(">u2").astype(np.uint16), mode, palette
+        high = np.ascontiguousarray(rows.reshape(height, width, channels, 2)[..., 0])
+        if ctype == 4:                # "LA;16B" into RGBA: grey thrice, then alpha
+            high = np.ascontiguousarray(high[..., [0, 0, 0, 1]])
+        return high, mode, palette    # "RGB;16B", "RGBA;16B": the high bytes
     # 1, 2 or 4 bits a sample, most significant first, each row padded to a byte
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
     samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(height, -1)
@@ -333,6 +339,8 @@ def to_rgb(path: str) -> np.ndarray:
     grey = pixels[..., 0] if mode == "LA" else pixels
     if mode == "1":
         grey = grey.astype(np.uint8) * np.uint8(255)
+    if mode == "I;16":                # Convert.c I16_RGB: values past 255 are 255
+        grey = np.minimum(grey, 255).astype(np.uint8)
     return np.repeat(grey[..., None], 3, axis=-1)
 
 

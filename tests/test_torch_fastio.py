@@ -121,6 +121,13 @@ def test_native_entry_points_count_their_calls_and_check_their_input():
         fastio.png_unfilter(bytes([9, 0, 0]), 1, 2, 1)
     with pytest.raises(ValueError, match="scanlines"):
         fastio.png_unfilter(bytes([0, 0]), 1, 2, 1)
+    # a 2x1 grey image interlaced: pixel 0 in pass 1, pixel 1 in pass 6 (Sub,
+    # with no pixel to its left in the pass)
+    np.testing.assert_array_equal(fastio.png_adam7(bytes([0, 7, 1, 9]), 2, 1, 8), [[7, 9]])
+    with pytest.raises(ValueError, match="seven passes"):
+        fastio.png_adam7(bytes([0, 7, 1]), 2, 1, 8)
+    with pytest.raises(ValueError, match="filter type"):
+        fastio.png_adam7(bytes([0, 7, 6, 9]), 2, 1, 8)
     with pytest.raises(ValueError, match="out of range"):
         fastio.resample_u8(np.zeros((1, 4, 1), np.uint8), np.array([3]), np.array([2]),
                            np.ones((1, 2), np.int32))
@@ -131,7 +138,7 @@ def test_native_entry_points_count_their_calls_and_check_their_input():
     with pytest.raises(OSError, match="not 57x40"):
         fastio.decode_jpeg(jpeg, 57, 40, 3)
     assert {k: fastio.calls[k] - before[k] for k in before} == {
-        "parse_obj": 1, "decode_rle": 1, "png_unfilter": 2, "resample_u8": 0,
+        "parse_obj": 1, "decode_rle": 1, "png_unfilter": 2, "png_adam7": 3, "resample_u8": 0,
         "decode_jpeg": 3}
 
 

@@ -5,8 +5,9 @@ and shape included), no tolerance.
 Files come from Pillow where Pillow writes the mode (8-bit grey, grey +
 alpha, RGB, RGBA, 1-bit grey, 1/2/4/8-bit palette; Pillow picks the filter of
 each row) and from a small encoder here where it does not (2- and 4-bit grey,
-every one of the five filter types on every row, several IDAT chunks, an
-interlace flag, broken files). The resizes are held to ``Image.resize`` over
+16-bit samples of every colour type, Adam7 interlacing of every depth and
+colour type, every one of the five filter types on every row, several IDAT
+chunks, broken files). The resizes are held to ``Image.resize`` over
 ``hypothesis``-drawn sizes, up and down, uint8 and float32 (mode "F").
 """
 import re
@@ -100,23 +101,41 @@ def _chunk(kind, body):
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def _encode(path, samples, depth, ctype, filters=None, palette=None, interlace=0, splits=1):
-    """A PNG of ``samples`` [H, W(, C)] at ``depth`` bits, colour type ``ctype``."""
-    h, w = samples.shape[:2]
+def _pack(samples, depth):
+    """The packed rows [H, stride] of samples [H, W(, C)] at ``depth`` bits."""
+    h = samples.shape[0]
     flat = samples.reshape(h, -1).astype(np.uint16 if depth == 16 else np.uint8)
     if depth < 8:
         per = 8 // depth
         padded = np.zeros((h, -(-flat.shape[1] // per) * per), np.uint8)
         padded[:, :flat.shape[1]] = flat
         shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        rows = (padded.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
-    elif depth == 16:
-        rows = flat.astype(">u2").view(np.uint8).reshape(h, -1)
-    else:
-        rows = flat
+        return (padded.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+    if depth == 16:
+        return flat.astype(">u2").view(np.uint8).reshape(h, -1)
+    return flat
+
+
+# Adam7's passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))
+
+
+def _encode(path, samples, depth, ctype, filters=None, palette=None, interlace=0, splits=1):
+    """A PNG of ``samples`` [H, W(, C)] at ``depth`` bits, colour type
+    ``ctype``; interlaced, each non-empty Adam7 pass is filtered as an image
+    of its own, row i of all the passes together with filter filters[i]."""
+    h, w = samples.shape[:2]
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     bpp = max(1, channels * depth // 8)
-    data = zlib.compress(_filter_rows(rows, bpp, filters if filters is not None else [0] * h))
+    passes = [samples[y0::dy, x0::dx] for y0, x0, dy, dx in ADAM7] if interlace else [samples]
+    passes = [p for p in passes if p.shape[0] and p.shape[1]]
+    filters = filters if filters is not None else [0] * sum(p.shape[0] for p in passes)
+    scanlines, row = b"", 0
+    for p in passes:
+        scanlines += _filter_rows(_pack(p, depth), bpp, filters[row:row + p.shape[0]])
+        row += p.shape[0]
+    data = zlib.compress(scanlines)
     cut = np.linspace(0, len(data), splits + 1).astype(int)
     body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
@@ -170,14 +189,20 @@ def _unsupported_files(root):
     _encode(rgb16, RNG.randint(0, 1 << 16, (5, 6, 3)), 16, 2)
     interlaced = root / "adam7.png"
     _encode(interlaced, RNG.randint(0, 256, (5, 6, 3)), 8, 2, interlace=1)
-    return {gif: "GIF", grey16: "16-bit", rgb16: "16-bit", interlaced: "interlaced"}
+    return {gif: "GIF"}, (grey16, rgb16, interlaced)
 
 
 def test_unsupported_files_raise_naming_the_file_and_the_feature(tmp_path):
-    for path, feature in _unsupported_files(tmp_path).items():
+    """GIF (like BMP, TIFF and WebP) raises naming the file and the format;
+    16-bit and interlaced PNG, which raised before the port read them,
+    decode as Pillow decodes them."""
+    unsupported, decoded = _unsupported_files(tmp_path)
+    for path, feature in unsupported.items():
         for fn in (image_io.read_png, image_io.read_image, image_io.to_rgb):
             with pytest.raises(ValueError, match=re.escape(str(path)) + ".*" + feature):
                 fn(str(path))
+    for path in decoded:
+        _check_against_pillow(path)
     # a JPEG, whatever its name says, decodes as Pillow decodes it; read_png
     # reads PNG only and says so (tests/test_torch_jpeg.py holds the decoder)
     jpeg = tmp_path / "photo.png"
@@ -191,6 +216,67 @@ def test_unsupported_files_raise_naming_the_file_and_the_feature(tmp_path):
     assert image_io.image_mode(str(tmp_path / "grey16.png")) == "I;16"
     assert image_io.image_mode(str(tmp_path / "rgb16.png")) == "RGB"
     assert image_io.image_mode(str(tmp_path / "adam7.png")) == "RGB"
+
+
+ALL_DEPTHS = [(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2), (1, 3), (2, 3), (4, 3),
+              (8, 3), (8, 4), (16, 4), (8, 6), (16, 6)]
+
+
+@pytest.mark.parametrize("depth,ctype", ALL_DEPTHS)
+def test_adam7_and_16_bit_equal_pillow(tmp_path, depth, ctype):
+    """Every bit depth and colour type interlaced (Adam7: seven passes, each
+    filtered as an image of its own width, the empty ones absent at the
+    small sizes), filters 0-4 cycling over the passes' rows; 16-bit samples
+    also plain: "I;16" gives the values, RGB, grey + alpha and RGBA the high
+    bytes, and ``to_rgb`` of "I;16" is Pillow's (values past 255 are 255)."""
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    palette = RNG.randint(0, 256, (1 << depth, 3)) if ctype == 3 else None
+    for interlace in (1, 0) if depth == 16 else (1,):
+        for h, w in ((1, 1), (1, 3), (2, 1), (5, 6), (9, 13), (17, 4)):
+            samples = RNG.randint(0, 1 << depth, (h, w, channels)).squeeze(
+                -1 if channels == 1 else ())
+            if depth == 16:                # small values too, which "I;16" -> RGB keeps
+                samples[::2] %= 300
+            path = tmp_path / f"d{depth}c{ctype}i{interlace}_{h}x{w}.png"
+            _encode(path, samples, depth, ctype, [i % 5 for i in range(3 * h)], palette,
+                    interlace=interlace, splits=2)
+            _check_against_pillow(path)
+
+
+def test_damaged_interlaced_files_raise_where_pillow_raises(tmp_path):
+    """A filter type outside 0-4 in a later pass, and passes cut short."""
+    samples = RNG.randint(0, 256, (9, 11, 3))
+    scanlines = b""
+    for y0, x0, dy, dx in ADAM7:
+        part = samples[y0::dy, x0::dx]
+        scanlines += _filter_rows(_pack(part, 8), 3, [0] * part.shape[0])
+    header = _chunk(b"IHDR", struct.pack(">IIBBBBB", 11, 9, 8, 2, 0, 0, 1))
+    last = len(scanlines) - (11 * 3 + 1) * 4        # pass 7's first scanline
+    bodies = {"bad filter": scanlines[:last] + b"\x05" + scanlines[last + 1:],
+              "short": scanlines[:-5], "short pass 1": scanlines[:3]}
+    for name, body in bodies.items():
+        path = tmp_path / f"{name}.png"
+        path.write_bytes(image_io.PNG_SIGNATURE + header + _chunk(b"IDAT", zlib.compress(body))
+                         + _chunk(b"IEND", b""))
+        with pytest.raises(image_io.DamagedImageError, match=re.escape(str(path))):
+            image_io.read_image(str(path))
+        with pytest.raises(OSError):
+            with PIL.Image.open(path) as im:
+                im.load()
+    # IHDR: a filter method other than 0 is refused at open; any nonzero
+    # interlace method is read as Adam7
+    idat = _chunk(b"IDAT", zlib.compress(scanlines)) + _chunk(b"IEND", b"")
+    for filtering, interlace in ((1, 1), (0, 2)):
+        path = tmp_path / f"ihdr_{filtering}_{interlace}.png"
+        path.write_bytes(image_io.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", 11, 9, 8, 2, 0, filtering, interlace)) + idat)
+        if filtering:
+            with pytest.raises(image_io.DamagedImageError, match="filter method 1"):
+                image_io.image_mode(str(path))
+            with pytest.raises(OSError):
+                PIL.Image.open(path)
+        else:
+            _check_against_pillow(path)
 
 
 def test_damaged_files_raise_damaged_image_error(tmp_path):

@@ -100,8 +100,10 @@ def test_port_reads_dataset_files_without_pillow_equal_to_jax(shapenet_dir, tmp_
 def test_pix3d_scan_drops_what_the_reference_drops_and_raises_on_jpeg(tmp_path, monkeypatch):
     """A grey 16-bit PNG (Pillow's mode "I;16") and a truncated RGB PNG are
     dropped, as the JAX package drops them; a JPEG photo is decoded and kept,
-    as the JAX package keeps it; a JPEG the port does not decode
-    (arithmetic-coded) is not dropped without a word: the scan raises naming it."""
+    as the JAX package keeps it, and so is its arithmetic-coded twin (its
+    Huffman-coded data read as arithmetic-coded, as libjpeg reads it); a file
+    the port does not decode (a BMP) is not dropped without a word: the scan
+    raises naming it."""
     _write_pix3d_fixture(tmp_path)
     manifest = json.loads((tmp_path / "pix3d.json").read_text())
     PIL.Image.fromarray(np.full((40, 60), 1000, np.uint16)).save(tmp_path / "img" / "g16.png")
@@ -120,9 +122,18 @@ def test_pix3d_scan_drops_what_the_reference_drops_and_raises_on_jpeg(tmp_path, 
     arith = bytearray((tmp_path / "img" / "photo.jpg").read_bytes())
     arith[arith.index(b"\xff\xc0") + 1] = 0xC9           # SOF9: arithmetic coding
     (tmp_path / "img" / "arith.jpg").write_bytes(bytes(arith))
+    manifest += [dict(manifest[0], img="img/arith.jpg")]
+    (tmp_path / "pix3d.json").write_text(json.dumps(manifest))
+    want = [r["img"] for r in jd.pix3dDataset(str(tmp_path)).records]
+    (tmp_path / ".pix3d_scan_cache.json").unlink()
+    with monkeypatch.context() as m:
+        _block_pil(m)
+        assert [r["img"] for r in pd.pix3dDataset(str(tmp_path)).records] == want
+    (tmp_path / ".pix3d_scan_cache.json").unlink()
+    PIL.Image.open(tmp_path / "img" / "a.png").save(tmp_path / "img" / "photo.bmp")
     (tmp_path / "pix3d.json").write_text(json.dumps(manifest + [dict(manifest[0],
-                                                                      img="img/arith.jpg")]))
-    with pytest.raises(ValueError, match="arith.jpg.*arithmetic coding"):
+                                                                      img="img/photo.bmp")]))
+    with pytest.raises(ValueError, match="photo.bmp.*BMP"):
         pd.pix3dDataset(str(tmp_path))
 
 
